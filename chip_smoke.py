@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero, and no phase catches an
+error and carries on:
+  1. device    a CUDA card is required; prints nvidia-smi name,power.limit
+  2. build     nvcc builds the three kernels from src/repro_torch/kernels/
+               csrc (one process per source, all at once); prints ptxas -v
+  3. kernels   each kernel against its plain PyTorch version on the card,
+               at the main path's full-width shapes and a ragged shape
+  4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
+               --calibrate 1 with 4 requests, prompt 64, gen 16, in
+               asym_u8 and sym_i8; launch counts must match the path, and
+               no plain version may see a CUDA tensor
+  5. parity    the same path at 2 layers of full width, same weights,
+               table and prompts: every kernel launch of the card's run
+               held against its plain version on the CPU from the same
+               inputs; the free-running CPU run reported beside it
+  6. timing    each kernel and its plain version with CUDA events at the
+               main path's shapes
+The last three lines are the kernels' JSON record, the card's name and
+power limit, and {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# main path of qwen3-1.7b at full width
+ARGS = ["--arch", "qwen3-1.7b", "--requests", "4", "--prompt-len", "64",
+        "--gen-len", "16", "--calibrate", "1"]
+B, P, G = 4, 64, 16
+CALIB_TOKENS = P + 2            # calibrate_decode: prompt + 2 greedy steps
+# H100 SXM data-sheet rates
+HBM_BPS = 3.35e12
+INT8_OPS = 1979e12
+F32_FLOPS = 67e12
+SOURCES = {
+    "delta_matmul": ("src/repro_torch/kernels/csrc/delta_matmul.cu",
+                     "src/repro/kernels/approx_matmul.py:136"),
+    "fused_qdot": ("src/repro_torch/kernels/csrc/fused_qdot.cu",
+                   "src/repro/kernels/approx_matmul.py:266"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/attention.py:137"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def phase(name):
+    log(f"\n=== {name} ===")
+
+
+def nvidia_smi_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True, timeout=60)
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_time(fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms per call of fn() on the card: CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# shapes of the main path (per layer of qwen3-1.7b)
+# ---------------------------------------------------------------------------
+
+def projection_shapes(cfg):
+    D, H, Kv, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+    # calibration runs the 7 unmerged projections, serving the 4 merged
+    unmerged = [("wq", D, H * hd), ("wk", D, Kv * hd), ("wv", D, Kv * hd),
+                ("wo", H * hd, D), ("w_gate", D, F), ("w_up", D, F),
+                ("w_down", F, D)]
+    merged = [("wqkv", D, (H + 2 * Kv) * hd), ("wo", H * hd, D),
+              ("w_gateup", D, 2 * F), ("w_down", F, D)]
+    return unmerged, merged
+
+
+def delta_bound(M, K, N):
+    nbytes = M * K * 4 + K * N + 65536 * 2 + M * N * 4
+    return nbytes / HBM_BPS, 2 * M * K * N / INT8_OPS
+
+
+def fused_bound(M, K, N):
+    nbytes = M * K * 4 + K * N + 65536 * 2 + 4 * N * 4 + 8 * 4 + 256 * 4 \
+        + M * N * 4
+    return nbytes / HBM_BPS, 2 * M * K * N / INT8_OPS
+
+
+def attention_bound(Bq, H, Kv, hd, pos):
+    # cache rows t <= pos are read (the kernel skips the rest), once each
+    nbytes = (Bq * H * hd * 4 + 2 * Bq * Kv * hd * 4 + 2 * hd * 4
+              + 2 * Bq * (pos + 1) * Kv * hd * 2 + Bq * H * hd * 4
+              + 2 * Bq * Kv * hd * 2 + Bq * 4)
+    flops = 4 * Bq * H * (pos + 1) * hd
+    return nbytes / HBM_BPS, flops / F32_FLOPS
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def check_kernels(cfg, dev):
+    from repro_torch.kernels import check
+    unmerged, merged = projection_shapes(cfg)
+    errs = {"delta_matmul": 0.0, "fused_qdot": 0.0, "decode_attention": 0.0}
+    for signed in (False, True):
+        mode = "sym_i8" if signed else "asym_u8"
+        for i, (name, K, N) in enumerate(unmerged + [("ragged", 77, 131)]):
+            M = 5 if name == "ragged" else B
+            check.check_delta(check.delta_case(M, K, N, signed, i, dev))
+            log(f"[kernels] delta_matmul {mode} {name} M={M} K={K} N={N}: "
+                f"bit-exact")
+        for i, (name, K, N) in enumerate(merged + [("ragged", 77, 131)]):
+            for M in ((3, 70) if name == "ragged" else (B, B * P)):
+                r = check.check_fused(check.fused_case(M, K, N, signed,
+                                                       100 + i, dev))
+                errs["fused_qdot"] = max(errs["fused_qdot"],
+                                         r["max_abs_err"])
+                log(f"[kernels] fused_qdot {mode} {name} M={M} K={K} N={N}: "
+                    f"qx, acc bit-exact; max |err| {r['max_abs_err']:.3e} "
+                    f"({r['max_rel_err']:.3e} of max |y|)")
+    H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    cases = [("decode, per-slot pos", dict(B=B, S=P + G, pos=[64, 70, 75, 79])),
+             ("decode, one pos", dict(B=B, S=P + G, per_slot=False)),
+             ("calibration", dict(B=B, S=CALIB_TOKENS, pos=[0, 1, 33, 65])),
+             ("ragged + window", dict(B=3, S=77, window=20))]
+    for i, (name, kw) in enumerate(cases):
+        Bq, S = kw.pop("B"), kw.pop("S")
+        r = check.check_attention(check.attention_case(Bq, S, H, Kv, hd, i,
+                                                       dev, **kw))
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       r["max_abs_err"])
+        log(f"[kernels] decode_attention {name} B={Bq} S={S}: v rows "
+            f"bit-exact, {r['row_flips']} of {r['row_entries']} k-row "
+            f"entries one bf16 step apart, max |out err| "
+            f"{r['max_abs_err']:.3e}")
+    return errs
+
+
+class PlainGuard:
+    """Makes the plain versions raise if the main path hands them a CUDA
+    tensor (the wrappers must launch the kernels instead)."""
+
+    NAMES = ("delta_matmul_ref", "fused_qdot_ref", "decode_attention_step_ref")
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ref
+        self.saved = {n: getattr(ref, n) for n in self.NAMES}
+
+        def guard(name, fn):
+            def wrapped(*a, **k):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in list(a) + list(k.values())):
+                    raise AssertionError(f"plain {name} called on the card")
+                return fn(*a, **k)
+            return wrapped
+        for n, fn in self.saved.items():
+            setattr(ref, n, guard(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        for n, fn in self.saved.items():
+            setattr(ref, n, fn)
+
+
+def serve_full_width(cfg):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    L = cfg.n_layers
+    want = {"delta_matmul": 7 * L * CALIB_TOKENS,
+            # warm prefill + warm decode + timed prefill + G-1 decode steps
+            "fused_qdot": 4 * L * (G + 2),
+            "decode_attention": L * (CALIB_TOKENS + G)}
+    totals = dict.fromkeys(want, 0)
+    rows = {}
+    for mode in ("asym_u8", "sym_i8"):
+        args = serve.build_parser().parse_args(ARGS + ["--quant-mode", mode])
+        with PlainGuard():
+            ops.reset_launches()
+            r = serve.run(args)
+            counts = dict(ops.LAUNCHES)
+        log(f"[serve] {mode}: kernel build {r.t_build:.3f}s, prepare "
+            f"(init + prequantize + calibrate) {r.t_prepare:.3f}s, warmup "
+            f"{r.t_warmup:.3f}s")
+        log(f"[serve] {mode}: prefill {B}x{P} tokens {r.t_prefill * 1e3:.3f} "
+            f"ms ({B * P / r.t_prefill:.1f} tok/s); decode "
+            f"{r.t_decode * 1e3 / (G - 1):.3f} ms/step over {G - 1} steps; "
+            f"peak device memory {r.peak_bytes / 2**30:.3f} GiB")
+        log(f"[serve] {mode}: launches {counts} (expected {want})")
+        log(f"[serve] {mode}: sample output ids {r.out[0][:12].tolist()}")
+        assert counts == want, f"{mode}: launch counts {counts} != {want}"
+        assert r.out.shape == (B, G), r.out.shape
+        assert ((r.out >= 0) & (r.out < cfg.vocab)).all()
+        assert r.logits.shape == (B, 1, cfg.vocab), r.logits.shape
+        assert np.isfinite(r.logits).all(), "non-finite logits"
+        for k in totals:
+            totals[k] += counts[k]
+        rows[mode] = {"prefill_ms": r.t_prefill * 1e3,
+                      "prefill_tok_s": B * P / r.t_prefill,
+                      "decode_ms_per_step": r.t_decode * 1e3 / (G - 1),
+                      "peak_gib": r.peak_bytes / 2**30}
+        torch.cuda.empty_cache()
+    log("[serve] " + json.dumps({"serve": rows}))
+    return totals
+
+
+def _serve_once(cfg, params, q, table, cal, prompts, gen, dev):
+    """prequantize -> (calibrate) -> install -> prefill -> greedy decode."""
+    import torch
+    from repro_torch import calib
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import fuse_projections, prequantize_weights
+    from repro_torch.train import make_prefill_step, make_serve_step
+    b, p = prompts.shape
+    tree = prequantize_weights(params, q)
+    if table is None:
+        table = calib.calibrate_decode(tree, cfg, q, cal, gen_len=2,
+                                       device=dev)
+    tree = calib.apply_calibration(tree, table)
+    tree = fuse_projections(calib.attach_comp_cols(tree, q))
+    st = T.init_decode_state(cfg, b, p + gen, device=dev)
+    tok, lg, st = make_prefill_step(cfg, q)(
+        tree, st, torch.as_tensor(prompts, device=dev))
+    toks, lgs = [tok], [lg]
+    step = make_serve_step(cfg, q)
+    for _ in range(gen - 1):
+        tok, lg, st = step(tree, st, tok)
+        toks.append(tok)
+        lgs.append(lg)
+    return (table, torch.cat(toks, 1).cpu(), [x.float().cpu() for x in lgs],
+            {k: st["caches"][0][k].float().cpu() for k in ("k", "v")})
+
+
+def parity_two_layers(cfg_full):
+    """Full width, depth 2, the same weights, calibration table and
+    prompts.  Asserted: every kernel launch of the card's run equals its
+    plain version run on the CPU from the same inputs (CpuShadow).
+    Reported: the free-running card run against the free-running CPU run
+    of the plain versions.  Those two are not asserted equal: PyTorch's
+    CPU and CUDA glue ops (reduction order in rmsnorm and softmax, libm
+    ulps in rsqrt/exp/cos/sin, BLAS order in attention) differ by float32
+    ulps, a few activations per forward then land on the other side of a
+    static quantization step, and this random-weight model amplifies each
+    flipped step from projection to projection (PERF.md)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import check
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    b, p, g = 2, 8, 4
+    torch.set_num_threads(os.cpu_count() or 1)
+    params_cpu = T.init_params(torch.Generator().manual_seed(1), cfg,
+                               device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to("cuda")
+    params_gpu = to_card(params_cpu)
+    rng = np.random.default_rng(3)
+    cal = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+    for mode in ("asym_u8", "sym_i8"):
+        q = QuantConfig(design="design2", backend="fused", mode=mode,
+                        inference=True)
+        t0 = time.perf_counter()
+        with check.CpuShadow() as sh:
+            table, ids_g, lg_g, c_g = _serve_once(cfg, params_gpu, q, None,
+                                                  cal, prompts, g, "cuda")
+        for n, st in sh.stats.items():
+            assert st["calls"] > 0, f"{n} never launched"
+            log(f"[parity] {mode} {n}: {st['calls']} launches held against "
+                f"the CPU plain version; max |err| {st['max_abs_err']:.3e}"
+                + (f"; {st['row_flips']} of {st['row_entries']} k-row "
+                   f"entries one bf16 step apart" if st["row_entries"]
+                   else ""))
+        log(f"[parity] {mode} card run with CPU shadows: "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        _, ids_c, lg_c, c_c = _serve_once(cfg, params_cpu, q, table, cal,
+                                          prompts, g, "cpu")
+        gap = max(float((a - c).abs().max()) for a, c in zip(lg_g, lg_c))
+        scale = max(float(c.abs().max()) for c in lg_c)
+        flips = {k: int((c_g[k] != c_c[k]).sum()) for k in c_g}
+        log(f"[parity] {mode} free-running card vs CPU "
+            f"({time.perf_counter() - t0:.1f}s, not asserted): ids card "
+            f"{ids_g.tolist()} cpu {ids_c.tolist()}; max |logit gap| "
+            f"{gap:.3e} (max |logit| {scale:.3e}); cache entries that "
+            f"differ: {flips} of {c_g['k'].numel()} each")
+
+
+def time_kernels(cfg, dev, launches, errs):
+    import torch
+    from repro_torch.kernels import check, ops, ref
+    unmerged, merged = projection_shapes(cfg)
+    rows, summary = [], {}
+
+    def row(kernel, shape, ms, plain_ms, bounds):
+        b_bytes, b_ops = bounds
+        r = {"kernel": kernel, "shape": shape, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(b_bytes, b_ops) * 1e3,
+             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+        rows.append(r)
+        log("[timing] " + json.dumps(r))
+        return r
+
+    def mean(rs, weights):
+        tot = sum(weights)
+        return {k: sum(r[k] * w for r, w in zip(rs, weights)) / tot
+                for k in ("ms", "plain_ms", "bound_ms")}
+
+    # delta_matmul: the 7 calibration projections of a layer, M = B, asym
+    rs = []
+    for i, (name, K, N) in enumerate(unmerged):
+        c = check.delta_case(B, K, N, False, i, dev)
+        rs.append(row("delta_matmul", f"{name} M={B} K={K} N={N}",
+                      cuda_time(lambda: ops.delta_matmul(**c), 50),
+                      cuda_time(lambda: ref.delta_matmul_ref(**c), 5),
+                      delta_bound(B, K, N)))
+    summary["delta_matmul"] = (mean(rs, [1] * len(rs)), rs)
+
+    # fused_qdot: the 4 merged projections at decode (M=B) and prefill
+    # (M=B*P), weighted by the serve run's forwards (2 prefill, G decode)
+    rs, w = [], []
+    for i, (name, K, N) in enumerate(merged):
+        for M, weight in ((B, G), (B * P, 2)):
+            c = check.fused_case(M, K, N, False, 100 + i, dev)
+            it = 50 if M == B else 10
+            rs.append(row("fused_qdot", f"{name} M={M} K={K} N={N}",
+                          cuda_time(lambda: ops.fused_qdot_packed(**c), it),
+                          cuda_time(lambda: ref.fused_qdot_ref(
+                              c["x"], c["qw"], c["dlut"], c["scal"],
+                              c["ntab"], c["comp_r"], 0, True, True), 3),
+                          fused_bound(M, K, N)))
+            w.append(weight)
+    summary["fused_qdot"] = (mean(rs, w), rs)
+
+    # decode_attention: mid-decode position (P + G/2) over an S=P+G cache
+    pos = P + G // 2
+    c = check.attention_case(B, P + G, cfg.n_heads, cfg.n_kv, cfg.hd, 7,
+                             dev, pos=[pos] * B)
+    r = row("decode_attention", f"B={B} H={cfg.n_heads} Kv={cfg.n_kv} "
+            f"hd={cfg.hd} S={P + G} pos={pos}",
+            cuda_time(lambda: ops.decode_attention_step(**c), 200),
+            cuda_time(lambda: ref.decode_attention_step_ref(**c), 50),
+            attention_bound(B, cfg.n_heads, cfg.n_kv, cfg.hd, pos))
+    summary["decode_attention"] = (
+        {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}, [r])
+
+    kernels = []
+    for name, (m, rs) in summary.items():
+        src, replaces = SOURCES[name]
+        by = [x["bound_by"] for x in rs]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": max(set(by), key=by.count), "library_ms": None})
+    log("[timing] library_ms is null: no single PyTorch call computes the "
+        "approximate (delta-table) product, the fused quantize-product-"
+        "dequant, or the qk-norm/rope/bf16-row decode attention step")
+    return kernels
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    phase("1. device")
+    try:
+        import torch
+    except ImportError:
+        log("FAIL: torch is not installed")
+        return 2
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is false: this script needs a "
+            "CUDA card")
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    try:
+        from repro_torch import configs
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        log(f"FAIL: the port's package is missing next to this script "
+            f"({e})")
+        return 3
+    smi = nvidia_smi_line()
+    dev = torch.device("cuda")
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} card(s)")
+
+    phase("2. build")
+    t0 = time.perf_counter()
+    logs = _build.build()
+    log(f"[build] {len(logs)} libraries compiled in "
+        f"{time.perf_counter() - t0:.1f}s into {_build.BUILD_DIR}")
+    for name, text in logs.items():
+        log(f"[build] {name}: nvcc {' '.join(_build.NVCC_FLAGS)}")
+        for line in text.splitlines():
+            if "ptxas" in line and ("Used" in line or "Compiling" in line
+                                    or "spill" in line):
+                log(f"[build]   {line.strip()}")
+    for name in _build.KERNELS:
+        _build.kernel(name)
+
+    cfg = configs.get("qwen3-1.7b")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        phase("3. kernels against their plain versions")
+        errs = check_kernels(cfg, dev)
+        phase("4. full-width serve (main path)")
+        launches = serve_full_width(cfg)
+        phase("5. slice parity: card vs CPU at 2 layers of full width")
+        parity_two_layers(cfg)
+        phase("6. timing")
+        kernels = time_kernels(cfg, dev, launches, errs)
+    log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

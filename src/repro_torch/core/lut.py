@@ -1,0 +1,75 @@
+"""256x256 product, error and delta tables of the registered multipliers.
+
+Any 8x8 multiplier is exactly a 256x256 table, generated here from the
+gate-level simulation (the single source of truth).  The kernels consume
+the delta table ``D[a, b] = approx(a, b) - a*b``: stage 1 of the two-stage
+product is the exact integer product, stage 2 gathers D and adds it, so
+the sum is bit-exact against the gate level by construction.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+
+from .multipliers import MULTIPLIERS, exhaustive_products
+
+
+@lru_cache(maxsize=None)
+def build_lut(name: str) -> np.ndarray:
+    """(256,256) int32 product table for a registered multiplier."""
+    fn = MULTIPLIERS[name]
+    return exhaustive_products(fn).astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def build_signed_lut(name: str) -> np.ndarray:
+    """(256,256) int32 signed product table, indexed [a+128, b+128]."""
+    from ..signed.multipliers import (SIGNED_MULTIPLIERS,
+                                      exhaustive_signed_products)
+    if name not in SIGNED_MULTIPLIERS:
+        raise ValueError(
+            f"no signed variant of design {name!r}; registered signed "
+            f"designs: {sorted(SIGNED_MULTIPLIERS)}")
+    return exhaustive_signed_products(SIGNED_MULTIPLIERS[name]).astype(
+        np.int32)
+
+
+@lru_cache(maxsize=None)
+def error_table(name: str) -> np.ndarray:
+    """(256,256) int32  e(a,b) = approx(a,b) - a*b."""
+    exact = np.arange(256, dtype=np.int64)[:, None] * np.arange(256)[None, :]
+    return (build_lut(name).astype(np.int64) - exact).astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def signed_error_table(name: str) -> np.ndarray:
+    """(256,256) int32  e(a,b) = approx(a,b) - a*b, indexed [a+128, b+128]."""
+    r = np.arange(-128, 128, dtype=np.int64)
+    exact = r[:, None] * r[None, :]
+    return (build_signed_lut(name).astype(np.int64) - exact).astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def build_delta_lut(name: str, signed: bool = False) -> np.ndarray:
+    """(256,256) delta table  D[i,j] = approx(a,b) - a*b  for the kernels.
+
+    Indexing matches the product tables: D[a, b] unsigned, D[a+128, b+128]
+    signed (``signed=True`` resolves ``name`` in SIGNED_MULTIPLIERS).
+
+    dtype is the narrowest that holds the design's error range: int16
+    (128 KiB, the size that fits a Hopper block's shared memory beside
+    its operand tiles) for every paper design; designs whose error range
+    overflows int16 (only the pedagogical 'initial' array, min ED -48744)
+    fall back to int32, which the CUDA kernels refuse.  The round trip is
+    asserted exact either way.
+    """
+    e = signed_error_table(name) if signed else error_table(name)
+    i16 = np.iinfo(np.int16)
+    if i16.min <= e.min() and e.max() <= i16.max:
+        d = e.astype(np.int16)
+    else:
+        d = e  # int32 fallback (overflow designs)
+    assert (d.astype(np.int64) == e.astype(np.int64)).all(), \
+        f"delta LUT narrowing overflowed for design {name!r}"
+    return d

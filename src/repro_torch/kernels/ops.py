@@ -1,0 +1,325 @@
+"""Kernel wrappers and the operators the quantized layers call.
+
+Three kernels, each written by hand in CUDA C++ for Hopper
+(``csrc/*.cu``) with its plain PyTorch version in ``ref``:
+
+  delta_matmul      exact integer product + delta-table gather
+  fused_qdot        static activation quantization + the delta product +
+                    the dequant epilogue
+  decode_attention  qk-norm + rope + bf16 row rounding + masked GQA
+                    attention with an online softmax, one decode step
+
+The lowering follows the tensors' device: a CUDA tensor launches the
+kernel (or the wrapper raises on what the kernel does not take), a CPU
+tensor takes the plain version.  There is no fallback from one to the
+other.  ``LAUNCHES`` counts the kernel launches of each wrapper.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import ref
+
+# kernel name -> number of launches in this process (reset_launches)
+LAUNCHES = {"delta_matmul": 0, "fused_qdot": 0, "decode_attention": 0}
+
+_LUT_CACHE: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def get_delta_lut(design: str, signed: bool = False) -> np.ndarray:
+    """Delta table D = approx - exact, int16 where the design's error
+    range allows (core.lut.build_delta_lut)."""
+    key = ("delta", design, signed)
+    if key not in _LUT_CACHE:
+        from ..core import lut as lutmod
+        _LUT_CACHE[key] = lutmod.build_delta_lut(design, signed)
+    return _LUT_CACHE[key]
+
+
+def delta_table(design: str, signed: bool, device) -> torch.Tensor:
+    """get_delta_lut as a tensor on ``device`` (cached per device)."""
+    key = ("delta_t", design, signed, str(torch.device(device)))
+    if key not in _LUT_CACHE:
+        _LUT_CACHE[key] = torch.from_numpy(
+            get_delta_lut(design, signed)).to(device)
+    return _LUT_CACHE[key]
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda(name: str, *tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: mixed devices ({t.device} with cuda)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _check_table(name: str, dlut: torch.Tensor) -> None:
+    _check(tuple(dlut.shape) == (256, 256),
+           f"{name}: delta table must be (256, 256), got {tuple(dlut.shape)}")
+    _check(dlut.dtype == torch.int16,
+           f"{name}: the CUDA kernel takes an int16 delta table (128 KiB "
+           f"in shared memory); got {dlut.dtype} — design 'initial' needs "
+           f"int32 (256 KiB), which does not fit a block's shared memory")
+
+
+def _raise_cuda(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")
+
+
+def _wrong_device(name: str, t: torch.Tensor):
+    return ValueError(f"{name}: no kernel for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# delta_matmul
+# ---------------------------------------------------------------------------
+
+def delta_matmul(a: torch.Tensor, b: torch.Tensor, dlut: torch.Tensor,
+                 offset: int = 0) -> torch.Tensor:
+    """S[m,n] = sum_k ( a[m,k]*b[k,n] + D[(a+off)&255, (b+off)&255] ), int32.
+
+    a: (M, K) int32; b: (K, N) uint8 (offset 0) or int8 (offset 128) on
+    the card, any integer dtype on the CPU; dlut: (256, 256) delta table.
+    """
+    if a.device.type == "cpu":
+        return ref.delta_matmul_ref(a, b, dlut, offset)
+    if a.device.type != "cuda":
+        raise _wrong_device("delta_matmul", a)
+    name = "delta_matmul"
+    _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
+           f"{name}: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    _check(a.dtype == torch.int32, f"{name}: a must be int32, got {a.dtype}")
+    _check((b.dtype, offset) in ((torch.uint8, 0), (torch.int8, 128)),
+           f"{name}: b must be uint8 with offset 0 or int8 with offset "
+           f"128, got {b.dtype} with offset {offset}")
+    _check_table(name, dlut)
+    _check_cuda(name, a, b, dlut)
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    from ._build import kernel
+    err = kernel(name)(a.data_ptr(), b.data_ptr(), dlut.data_ptr(),
+                       out.data_ptr(), M, K, N, offset,
+                       int(b.dtype == torch.int8), _stream())
+    _raise_cuda(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def approx_matmul(a: torch.Tensor, b: torch.Tensor, design: str = "design2",
+                  backend: str = "delta", signed: bool = False
+                  ) -> torch.Tensor:
+    """S = A (x)_approx B over integer operands, float32 out.
+
+    a: (..., M, K), b: (K, N); uint8-valued by default, int8-valued with
+    ``signed``.  Backends: 'delta' (the delta kernel; 'fused' on integer
+    operands has no float ends to fuse and means 'delta') and 'exact'.
+    """
+    lead = a.shape[:-2]
+    K = a.shape[-1]
+    a2 = a.reshape(-1, K)
+    if backend == "exact":
+        out = ref.exact_matmul_ref(a2, b)
+    elif backend in ("delta", "fused"):
+        if a2.is_cuda:
+            a2 = a2.to(torch.int32).contiguous()
+            b = b.to(torch.int8 if signed else torch.uint8).contiguous()
+        out = delta_matmul(a2, b, delta_table(design, signed, a.device),
+                           offset=128 if signed else 0)
+    else:
+        raise ValueError(f"backend {backend!r} is not ported (ported: "
+                         f"'delta', 'fused', 'exact')")
+    return out.float().reshape(*lead, a.shape[-2], b.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# fused_qdot
+# ---------------------------------------------------------------------------
+
+def _as_col(v, N: int, device) -> torch.Tensor:
+    """A scalar / (1,N) / (N,) epilogue parameter as an (N,) f32 column."""
+    if v is None:
+        return torch.zeros((N,), dtype=torch.float32, device=device)
+    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    return torch.broadcast_to(v.reshape(-1) if v.dim() else v, (N,))
+
+
+def pack_fused_operands(N: int, device, *, sx, zx=None, sw, zw=None,
+                        colsum=None, comp_r=None, comp_col=None,
+                        comp_mu=None):
+    """The fused kernel's operand tables, packed as the reference's
+    ops.fused_qdot packs them: scal (8,) f32 [sx, zx, comp_mu, 0...], ntab
+    (4, N) f32 rows [sw, zw, colsum, comp_col] and the row compensation
+    table (256,) f32.  sx/zx: static activation scale / zero point (zx
+    None for sym_i8); sw/zw: weight scale / zero point, scalar or per
+    column; colsum: colsum(qw) for the asym_u8 cross term; comp_*: the
+    mean-field compensation tables (quant.linear memoizes the result per
+    layer)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    zero = torch.zeros((), **f32)
+
+    def scalar(v):
+        return zero if v is None else torch.as_tensor(v, **f32).reshape(())
+
+    scal = torch.stack([scalar(sx), scalar(zx), scalar(comp_mu)]
+                       + [zero] * 5)
+    ntab = torch.stack([_as_col(sw, N, device), _as_col(zw, N, device),
+                        _as_col(colsum, N, device),
+                        _as_col(comp_col, N, device)]).contiguous()
+    cr = (torch.as_tensor(comp_r, **f32).reshape(-1).contiguous()
+          if comp_r is not None else torch.zeros((256,), **f32))
+    return scal, ntab, cr
+
+
+def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
+                      scal: torch.Tensor, ntab: torch.Tensor,
+                      comp_r: torch.Tensor, *, signed: bool = False,
+                      compensate: bool = False, return_int: bool = False):
+    """The fused kernel on packed operands: float x (M, K) @ prequantized
+    qw (K, N) -> float32 (M, N).  ``return_int`` also returns the
+    quantized activations (M, K) and the int32 accumulator (M, N)."""
+    offset = 128 if signed else 0
+    if x.device.type == "cpu":
+        return ref.fused_qdot_ref(x, qw, dlut, scal, ntab, comp_r,
+                                  offset=offset, asym=not signed,
+                                  compensate=compensate,
+                                  return_int=return_int)
+    if x.device.type != "cuda":
+        raise _wrong_device("fused_qdot", x)
+    name = "fused_qdot"
+    _check(x.dim() == 2 and qw.dim() == 2 and x.shape[1] == qw.shape[0],
+           f"{name}: shapes {tuple(x.shape)} @ {tuple(qw.shape)}")
+    M, K = x.shape
+    N = qw.shape[1]
+    _check(x.dtype == torch.float32, f"{name}: x must be float32")
+    want = torch.int8 if signed else torch.uint8
+    _check(qw.dtype == want, f"{name}: qw must be {want} for "
+           f"{'sym_i8' if signed else 'asym_u8'}, got {qw.dtype}")
+    _check_table(name, dlut)
+    _check(scal.dtype == torch.float32 and scal.numel() >= 3,
+           f"{name}: scal must be float32 with >= 3 entries")
+    _check(ntab.dtype == torch.float32 and tuple(ntab.shape) == (4, N),
+           f"{name}: ntab must be float32 (4, {N})")
+    _check(comp_r.dtype == torch.float32 and comp_r.numel() == 256,
+           f"{name}: comp_r must be float32 (256,)")
+    _check_cuda(name, x, qw, dlut, scal, ntab, comp_r)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    qx = acc = None
+    if return_int:
+        qx = torch.empty((M, K), dtype=torch.int32, device=x.device)
+        acc = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    from ._build import kernel
+    err = kernel(name)(x.data_ptr(), qw.data_ptr(), dlut.data_ptr(),
+                       scal.data_ptr(), ntab.data_ptr(), comp_r.data_ptr(),
+                       out.data_ptr(), qx.data_ptr() if return_int else None,
+                       acc.data_ptr() if return_int else None, M, K, N,
+                       int(not signed), int(compensate), _stream())
+    _raise_cuda(name, err)
+    LAUNCHES[name] += 1
+    return (out, qx, acc) if return_int else out
+
+
+# ---------------------------------------------------------------------------
+# decode_attention
+# ---------------------------------------------------------------------------
+
+def decode_attention_step(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
+                          pos, *, theta: float = 10000.0, window=None):
+    """One fused decode-attention step over a batch of cache slots.
+
+    q: (B, H, hd) f32 pre-norm pre-rope; k_new/v_new: (B, Kv, hd) f32
+    (batch rows may be strided, as slices of a merged qkv projection);
+    q_gain/k_gain: (hd,) qk-norm gains, or None for no qk-norm;
+    k_cache/v_cache: (B, S_max, Kv, hd) before the append; pos: scalar
+    or (B,) int32 cache positions.  Returns (out (B, H, hd) f32, k_row,
+    v_row (B, Kv, hd) in the cache dtype).
+    """
+    if q.device.type == "cpu":
+        return ref.decode_attention_step_ref(
+            q, k_new, v_new, q_gain, k_gain, k_cache, v_cache, pos,
+            theta=theta, window=window)
+    if q.device.type != "cuda":
+        raise _wrong_device("decode_attention", q)
+    name = "decode_attention"
+    B, H, hd = q.shape
+    Kv = k_new.shape[1]
+    S = k_cache.shape[1]
+    _check(tuple(k_new.shape) == (B, Kv, hd) == tuple(v_new.shape),
+           f"{name}: k/v rows must be ({B}, {Kv}, {hd})")
+    _check(tuple(k_cache.shape) == (B, S, Kv, hd) == tuple(v_cache.shape),
+           f"{name}: caches must be ({B}, S_max, {Kv}, {hd})")
+    _check(hd % 2 == 0 and 0 < hd <= 256,
+           f"{name}: head_dim {hd} must be even and <= 256")
+    _check(Kv > 0 and H % Kv == 0 and H // Kv <= 8,
+           f"{name}: query group H/Kv = {H}/{Kv} must be a whole number "
+           f"<= 8")
+    for t in (q, k_new, v_new):
+        _check(t.dtype == torch.float32 and t.stride(2) == 1
+               and t.stride(1) == hd,
+               f"{name}: q/k/v must be float32 with packed heads")
+    _check(k_cache.dtype == torch.bfloat16 == v_cache.dtype,
+           f"{name}: the caches must be bfloat16")
+    _check(pos.dtype == torch.int32 and pos.numel() in (1, B),
+           f"{name}: pos must be int32, scalar or ({B},)")
+    qk_norm = q_gain is not None
+    gains = (q_gain, k_gain) if qk_norm else ()
+    for g in gains:
+        _check(g.dtype == torch.float32 and g.numel() == hd,
+               f"{name}: gains must be float32 ({hd},)")
+    _check_cuda(name, k_cache, v_cache, pos, *gains)
+    for t in (q, k_new, v_new):
+        _check(t.device == k_cache.device, f"{name}: mixed devices")
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    krow = torch.empty((B, Kv, hd), dtype=k_cache.dtype, device=q.device)
+    vrow = torch.empty((B, Kv, hd), dtype=v_cache.dtype, device=q.device)
+    from ._build import kernel
+    err = kernel(name)(
+        q.data_ptr(), q.stride(0), k_new.data_ptr(), k_new.stride(0),
+        v_new.data_ptr(), v_new.stride(0),
+        q_gain.data_ptr() if qk_norm else None,
+        k_gain.data_ptr() if qk_norm else None,
+        k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        0 if pos.numel() == 1 else 1, out.data_ptr(), krow.data_ptr(),
+        vrow.data_ptr(), B, H, Kv, S, hd, float(theta or 0.0),
+        int(window or 0), int(qk_norm), _stream())
+    _raise_cuda(name, err)
+    LAUNCHES[name] += 1
+    return out, krow, vrow
+
+
+def decode_attention(q, k, v, k_cache, v_cache, idx, *, n_heads: int,
+                     n_kv: int, head_dim: int, rope_theta: float = 10000.0,
+                     window=None, q_gain=None, k_gain=None):
+    """The decode-step attention/cache op: qk-norm + rope at the slot's
+    cache position + masked single-query GQA attention (the kernel),
+    then the append of the new k/v rows to the caches, IN PLACE.
+
+    q: (B, 1, n_heads, hd) pre-norm pre-rope; k/v: (B, 1, n_kv, hd);
+    idx: scalar int32 (uniform decode) or (B,) per-slot positions.
+    Returns (out (B, 1, n_heads*hd) f32, k_cache, v_cache).
+    """
+    B = q.shape[0]
+    out, krow, vrow = decode_attention_step(
+        q.reshape(B, n_heads, head_dim), k.reshape(B, n_kv, head_dim),
+        v.reshape(B, n_kv, head_dim), q_gain, k_gain, k_cache, v_cache,
+        idx, theta=rope_theta, window=window)
+    ref.write_rows(k_cache, krow[:, None], idx)
+    ref.write_rows(v_cache, vrow[:, None], idx)
+    return out.reshape(B, 1, n_heads * head_dim), k_cache, v_cache

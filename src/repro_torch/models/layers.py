@@ -1,0 +1,174 @@
+"""Shared neural layers (functions of tensors, params = nested dicts).
+
+Every dense projection routes through quant.qdot, i.e. through the
+paper's approximate multiplier when the run's QuantConfig enables it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..device import true_div
+from ..kernels import ops
+from ..kernels.ref import write_rows
+from ..quant import QuantConfig, qdot
+
+
+def rmsnorm(x, gamma, eps: float = 1e-6):
+    var = torch.mean(torch.square(x.float()), -1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)) * gamma
+
+
+def rope(x, positions, theta: float = 10000.0):
+    """Rotary embedding. x: (B, S, H, D); positions: (S,) or (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** true_div(-torch.arange(0, half, dtype=torch.float32,
+                                            device=x.device), half)
+    pos = positions.float()
+    if pos.ndim == 1:
+        pos = pos[None, :]                       # (1, S)
+    ang = pos[:, :, None, None] * freqs          # (B, S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+
+def _split_heads(x, n, d):
+    return x.reshape(*x.shape[:-1], n, d)
+
+
+def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
+              n_kv: int, head_dim: int, causal: bool = True,
+              window: Optional[int] = None, qk_norm: bool = False,
+              cache: Optional[dict] = None, rope_theta: float = 10000.0):
+    """x: (B, S, D). Returns (out, new_cache).
+
+    cache: {"k": (B, S_max, n_kv, hd), "v": ..., "idx": int32 scalar}
+    for decode.  The new k/v rows are written into the cache tensors IN
+    PLACE (the JAX package returns new arrays); new_cache holds the same
+    tensors and idx + S.
+    """
+    B, S, _ = x.shape
+    idx = cache["idx"] if cache is not None else None
+    if positions is None and cache is not None:
+        positions = idx + torch.arange(S, dtype=torch.int32, device=x.device)
+    if "wqkv" in p:
+        # serving-time merged projection (quant.fuse_projections): one
+        # qdot, split by head counts
+        qkv = qdot(x, p["wqkv"], qcfg)
+        q, k, v = torch.split(
+            qkv, [n_heads * head_dim, n_kv * head_dim, n_kv * head_dim], -1)
+        q = _split_heads(q, n_heads, head_dim)
+        k = _split_heads(k, n_kv, head_dim)
+        v = _split_heads(v, n_kv, head_dim)
+    else:
+        q = _split_heads(qdot(x, p["wq"], qcfg), n_heads, head_dim)
+        k = _split_heads(qdot(x, p["wk"], qcfg), n_kv, head_dim)
+        v = _split_heads(qdot(x, p["wv"], qcfg), n_kv, head_dim)
+
+    if cache is not None and S == 1:
+        # fused decode step: qk-norm + rope + masked single-query
+        # attention in one kernel, then the cache append
+        out, ck, cv = ops.decode_attention(
+            q, k, v, cache["k"], cache["v"], idx, n_heads=n_heads,
+            n_kv=n_kv, head_dim=head_dim,
+            rope_theta=rope_theta if rope_theta else 0.0, window=window,
+            q_gain=p.get("q_norm") if qk_norm else None,
+            k_gain=p.get("k_norm") if qk_norm else None)
+        return qdot(out, p["wo"], qcfg), {"k": ck, "v": cv, "idx": idx + S}
+
+    if qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        write_rows(ck, k.to(ck.dtype), idx)
+        write_rows(cv, v.to(cv.dtype), idx)
+        new_cache = {"k": ck, "v": cv, "idx": idx + S}
+        k, v = ck, cv
+    k, v = k.float(), v.float()
+
+    S_k = k.shape[1]
+    group = n_heads // max(n_kv, 1)
+    qg = q.reshape(B, S, n_kv, group, head_dim)
+    if cache is not None:
+        qpos = positions
+        kv_limit = idx + S
+    elif positions is None:
+        qpos = torch.arange(S, device=x.device)
+        kv_limit = None
+    else:
+        qpos = positions if positions.ndim == 1 else positions[0]
+        kv_limit = None
+    kpos = torch.arange(S_k, device=x.device)
+
+    def attend(q_blk, qpos_blk):
+        """q_blk: (B, sq, n_kv, group, hd) -> (B, sq, n_kv, group, hd);
+        logits only ever materialize for one query block."""
+        lg = true_div(torch.einsum("bsngd,btnd->bngst", q_blk, k),
+                      math.sqrt(head_dim))
+        if kv_limit is not None:
+            m = (kpos[None, :] <= qpos_blk[:, None]) & \
+                (kpos[None, :] < kv_limit)
+        elif causal:
+            m = kpos[None, :] <= qpos_blk[:, None]
+        else:
+            m = torch.ones((q_blk.shape[1], S_k), dtype=torch.bool,
+                           device=x.device)
+        if window is not None:
+            m = m & (kpos[None, :] > qpos_blk[:, None] - window)
+        lg = torch.where(m[None, None, None], lg, torch.full_like(lg, -1e30))
+        pr = torch.softmax(lg.float(), dim=-1)
+        return torch.einsum("bngst,btnd->bsngd", pr, v)
+
+    CHUNK = 512
+    if S > CHUNK and S % CHUNK == 0:
+        out = torch.cat([attend(qg[:, i:i + CHUNK], qpos[i:i + CHUNK])
+                         for i in range(0, S, CHUNK)], 1)
+    else:
+        out = attend(qg, qpos)
+    out = out.reshape(B, S, n_heads * head_dim)
+    return qdot(out, p["wo"], qcfg), new_cache
+
+
+def make_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """KV cache (bf16 by default) with one position for every slot."""
+    idx = torch.zeros((), dtype=torch.int32, device=device)
+    shape = (batch, s_max, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "idx": idx}
+
+
+def _silu(x):
+    return x * torch.sigmoid(x)      # jax.nn.silu's form
+
+
+def mlp(p, x, qcfg: QuantConfig, kind: str):
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
+    if "w_gateup" in p:
+        # merged gate|up projection (quant.fuse_projections)
+        g, u = torch.chunk(qdot(x, p["w_gateup"], qcfg), 2, -1)
+        h = _silu(g) * u
+    else:
+        h = _silu(qdot(x, p["w_gate"], qcfg)) * qdot(x, p["w_up"], qcfg)
+    return qdot(h, p["w_down"], qcfg)
+
+
+def embed(table, tokens):
+    return table[tokens.long()]
+
+
+def unembed(table, x):
+    """Tied output head: exact, a plain float32 matmul, as the reference
+    leaves it to XLA."""
+    return torch.matmul(x, table.T)

@@ -1,0 +1,152 @@
+"""The dense decoder: params init, the layer loop and the decode step.
+
+Params keep the reference's tree: ``{"embed", "final_norm", "units":
+[slot params with a leading n_units axis on every leaf]}``, so both
+packages name sites alike (``units.0.attn.wq``) and a reference tree
+carries over (interop.params_from_numpy).  The stacked layers are walked
+by a Python loop (``_decoder_stack``), which pushes each layer index
+onto an active calibration observer the way the reference's pscan does.
+
+Only the dense pattern ``("attn",)`` is ported.
+
+API:
+  init_params(generator, cfg, device)            -> params
+  forward_decode(params, state, tokens, cfg, qcfg) -> (logits, state)
+  init_decode_state(cfg, batch, s_max, device)   -> state
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from ..configs import ArchConfig
+from ..device import resolve
+from ..quant import QuantConfig
+from ..quant.linear import QuantizedWeight, get_observer
+from . import layers
+
+
+def _check_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense" or tuple(cfg.pattern) != ("attn",):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense ('attn',) pattern is ported")
+    if cfg.mlp_kind != "swiglu":
+        raise NotImplementedError(f"mlp kind {cfg.mlp_kind!r} not ported")
+
+
+def init_params(generator: torch.Generator, cfg: ArchConfig,
+                device="cuda") -> Dict:
+    """Random params with the reference's shapes and init scales: dense
+    kernels N(0, 1/in_dim), embedding N(0, 0.02^2), norm gains 1.
+    Drawn on ``generator``'s device, then moved to ``device``."""
+    _check_dense(cfg)
+    dev = resolve(device)
+    gdev = generator.device
+    L, D, H, Kv, hd, F = (cfg.n_units, cfg.d_model, cfg.n_heads, cfg.n_kv,
+                          cfg.hd, cfg.d_ff)
+
+    def dense(in_dim, out_dim):
+        w = torch.randn((L, in_dim, out_dim), generator=generator,
+                        device=gdev) * (1.0 / math.sqrt(in_dim))
+        return w.to(dev)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    unit = {"norm1": ones(L, D),
+            "attn": {"wq": dense(D, H * hd), "wk": dense(D, Kv * hd),
+                     "wv": dense(D, Kv * hd), "wo": dense(H * hd, D)}}
+    if cfg.qk_norm:
+        unit["attn"]["q_norm"] = ones(L, hd)
+        unit["attn"]["k_norm"] = ones(L, hd)
+    if cfg.d_ff:
+        unit["norm2"] = ones(L, D)
+        unit["mlp"] = {"w_gate": dense(D, F), "w_up": dense(D, F),
+                       "w_down": dense(F, D)}
+    embed = torch.randn((cfg.vocab, D), generator=generator,
+                        device=gdev) * 0.02
+    return {"embed": embed.to(dev), "final_norm": ones(D), "units": [unit]}
+
+
+def take_layer(tree, i: int):
+    """Layer i of a stacked params tree (views; QuantizedWeight slices
+    are memoized on the wrapper)."""
+    if isinstance(tree, dict):
+        return {k: take_layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, QuantizedWeight):
+        return tree.layer(i)
+    return tree[i]
+
+
+def _block_apply(p, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
+                 cache=None):
+    """One decoder layer. Returns (x, new_cache)."""
+    h = layers.rmsnorm(x, p["norm1"])
+    att, new_cache = layers.attention(
+        p["attn"], h, positions, qcfg, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        head_dim=cfg.hd, causal=True, window=cfg.window,
+        qk_norm=cfg.qk_norm, cache=cache, rope_theta=cfg.rope_theta)
+    x = x + att
+    if "norm2" in p:
+        x = x + layers.mlp(p["mlp"], layers.rmsnorm(x, p["norm2"]), qcfg,
+                           cfg.mlp_kind)
+    return x, new_cache
+
+
+def _decoder_stack(params, x, positions, cfg: ArchConfig,
+                   qcfg: QuantConfig, caches=None):
+    """Loop the stacked layers. caches: list per pattern slot of stacked
+    (n_units, ...) cache trees, appended to in place. Returns (x,
+    new_caches)."""
+    _check_dense(cfg)
+    new_caches = []
+    obs = get_observer()
+    for slot, _ in enumerate(cfg.pattern):
+        slot_params = params["units"][slot]
+        sc = caches[slot] if caches is not None else None
+        for i in range(cfg.n_units):
+            lp = take_layer(slot_params, i)
+            cache_l = None if sc is None else {
+                "k": sc["k"][i], "v": sc["v"][i], "idx": sc["idx"][i]}
+            if obs is not None:
+                obs.push(i)
+            try:
+                x, _ = _block_apply(lp, x, positions, cfg, qcfg,
+                                    cache=cache_l)
+            finally:
+                if obs is not None:
+                    obs.pop()
+        if sc is not None:
+            sc = {"k": sc["k"], "v": sc["v"], "idx": sc["idx"] + x.shape[1]}
+        new_caches.append(sc)
+    return x, new_caches
+
+
+def forward_decode(params, state, tokens, cfg: ArchConfig,
+                   qcfg: QuantConfig):
+    """One decode step, or a full-sequence prefill: tokens (B, S) with
+    S > 1 run the whole block causally against the fresh KV region in
+    one pass (every qdot sees M = B*S rows).  ``state`` (from
+    init_decode_state) has its caches appended to in place and is handed
+    back with the new positions."""
+    x = layers.embed(params["embed"], tokens)
+    x, new_caches = _decoder_stack(params, x, None, cfg, qcfg,
+                                   caches=state["caches"])
+    x = layers.rmsnorm(x, params["final_norm"])
+    logits = layers.unembed(params["embed"], x)
+    return logits, dict(state, caches=new_caches)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, s_max: int,
+                      device="cuda") -> Dict:
+    """Zeroed bf16 KV caches stacked over the layers: k/v (n_units, B,
+    s_max, n_kv, hd) and idx (n_units,)."""
+    _check_dense(cfg)
+    dev = resolve(device)
+    L = cfg.n_units
+    one = layers.make_cache(batch, s_max, cfg.n_kv, cfg.hd, device=dev)
+    cache = {k: torch.zeros((L, *v.shape), dtype=v.dtype, device=dev)
+             for k, v in one.items()}
+    return {"caches": [cache]}

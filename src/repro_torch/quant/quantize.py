@@ -1,0 +1,103 @@
+"""uint8 asymmetric + int8 symmetric quantization for the approximate
+multiplier.
+
+The paper's multiplier is unsigned 8x8, so its natural quantized form is
+asymmetric uint8:   q = clip(round(x / s) + z, 0, 255), and a quantized
+matmul decomposes as
+
+    y = s_x s_w [ Q_x (x) Q_w  -  z_w rowsum(Q_x)  -  z_x colsum(Q_w)
+                  + K z_x z_w ]
+
+where only the Q_x (x) Q_w term runs through the approximate multiplier.
+mode='sym_i8' quantizes symmetrically to int8 (zero point 0) through the
+signed multiplier registry:  y = s_x s_w [ Q_x (x)_signed Q_w ].
+
+Rounding is half to even (torch.round), as jnp.round in the reference.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..device import true_div
+
+
+@dataclass(frozen=True)
+class QuantConfig:
+    """How the approximate multiplier is applied inside matmuls.
+
+    design:  'exact' | 'design1' | 'design2' | ... (core.multipliers)
+    backend: 'delta' (the delta kernel), 'fused' (one kernel does static
+             activation quantization + the delta product + the dequant
+             epilogue; needs prequantized weights with calibrated static
+             activation scales, else it degrades to 'delta'), 'exact'
+    compensate: mean-field bias compensation (subtract the separable
+        conditional means mu_r[a] + mu_c[b] - mu of the error table).
+    mode: 'asym_u8' (unsigned multiplier + zero-point decomposition) or
+        'sym_i8' (symmetric int8 through the signed registry).
+    Weight scales are per tensor (per stacked layer); per-channel scales
+    and a quantized unembed are not ported yet.
+    act_per_pos: per-position dynamic activation quantization (set by
+        train.make_prefill_step; ignored where static scales exist).
+    inference: pure inference (serve sets it).  The port has no STE
+        branch yet, so this changes nothing; kept for parity.
+    """
+    design: str = "design2"
+    backend: str = "delta"
+    compensate: bool = True
+    mode: str = "asym_u8"
+    act_per_pos: bool = False
+    inference: bool = False
+
+    def __post_init__(self):
+        if self.mode not in ("asym_u8", "sym_i8"):
+            raise ValueError(
+                f"unknown quant mode {self.mode!r}; expected 'asym_u8' "
+                f"or 'sym_i8'")
+
+    @property
+    def enabled(self) -> bool:
+        return self.design != "exact"
+
+    @property
+    def signed(self) -> bool:
+        return self.mode == "sym_i8"
+
+
+def _reduce(fn, x, axis):
+    if axis is None:
+        return fn(x)
+    return fn(x, dim=axis, keepdim=True)
+
+
+def _amin(x, dim=None, keepdim=False):
+    return torch.amin(x) if dim is None else torch.amin(x, dim, keepdim)
+
+
+def _amax(x, dim=None, keepdim=False):
+    return torch.amax(x) if dim is None else torch.amax(x, dim, keepdim)
+
+
+def _minmax_scale(x, axis=None, eps=1e-8):
+    lo = _reduce(_amin, x, axis)
+    hi = _reduce(_amax, x, axis)
+    scale = torch.clamp_min(true_div(hi - lo, 255.0), eps)
+    zp = torch.clamp(torch.round(-lo / scale), 0, 255)
+    return scale, zp
+
+
+def quantize_uint8(x, axis=None):
+    """Returns (q, scale, zp): q integer-valued in [0,255] (int32)."""
+    scale, zp = _minmax_scale(x, axis)
+    q = torch.clamp(torch.round(x / scale) + zp, 0, 255)
+    return q.to(torch.int32), scale, zp
+
+
+def quantize_int8(x, axis=None, eps=1e-8):
+    """Symmetric signed quantization: q in [-128,127] (int32), zero point
+    0.  Returns (q, scale) with x ~= q * scale."""
+    amax = _reduce(_amax, torch.abs(x), axis)
+    scale = torch.clamp_min(true_div(amax, 127.0), eps)
+    q = torch.clamp(torch.round(x / scale), -128, 127)
+    return q.to(torch.int32), scale
