@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card and check them.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero, and no phase catches an
 error and carries on:
   1. device    a CUDA card is required; prints nvidia-smi name,power.limit
-  2. build     nvcc builds the three kernels from src/repro_torch/kernels/
+  2. build     nvcc builds the five kernels from src/repro_torch/kernels/
                csrc (one process per source, all at once); prints ptxas -v
   3. kernels   each kernel against its plain PyTorch version on the card,
-               at the main path's full-width shapes and a ragged shape
+               at the serving and training paths' full-width shapes and a
+               ragged shape
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
                no plain version may see a CUDA tensor
-  5. parity    the same path at 2 layers of full width, same weights,
+  5. parity    the serving path at 2 layers of full width, same weights,
                table and prompts: every kernel launch of the card's run
                held against its plain version on the CPU from the same
                inputs; the free-running CPU run reported beside it
-  6. timing    each kernel and its plain version with CUDA events at the
-               main path's shapes
+  6. train     full-width qwen3-1.7b QAT through repro_torch.launch.train,
+               --batch 4 --seq 128 (M=512 rows per projection), remat on,
+               2 steps each of --backend xla and residual in asym_u8 and
+               sym_i8 (one run with --compress-grads, one with
+               --microbatches 2); launch counts must match the path; the
+               residual sym_i8 run saves its full-width state through
+               --ckpt-dir, which restores to tensors equal to it
+  7. train parity  one train step at 2 layers of full width on the card
+               and on the CPU: every lut_matmul / residual_matmul launch
+               held against its plain version on the CPU; the free-running
+               loss and gradient gaps reported
+  8. timing    each kernel and its plain version with CUDA events at the
+               paths' shapes
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -28,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -39,6 +53,15 @@ ARGS = ["--arch", "qwen3-1.7b", "--requests", "4", "--prompt-len", "64",
         "--gen-len", "16", "--calibrate", "1"]
 B, P, G = 4, 64, 16
 CALIB_TOKENS = P + 2            # calibrate_decode: prompt + 2 greedy steps
+# training path of qwen3-1.7b at full width: --batch 4 --seq 128
+TB, TS, TSTEPS = 4, 128, 2
+TRAIN_RUNS = [("xla", "asym_u8", ["--compress-grads"]),
+              ("xla", "sym_i8", ["--microbatches", "2"]),
+              ("residual", "asym_u8", []),
+              ("residual", "sym_i8", [])]
+CKPT_RUN = ("residual", "sym_i8")          # saves its state: --ckpt-dir
+CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
+RANK = 32                        # QuantConfig.rank, the launcher's default
 # H100 SXM data-sheet rates
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
@@ -50,6 +73,10 @@ SOURCES = {
                    "src/repro/kernels/approx_matmul.py:266"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/attention.py:137"),
+    "lut_matmul": ("src/repro_torch/kernels/csrc/lut_matmul.cu",
+                   "src/repro/kernels/approx_matmul.py:375"),
+    "residual_matmul": ("src/repro_torch/kernels/csrc/residual_matmul.cu",
+                        "src/repro/kernels/approx_matmul.py:440"),
 }
 
 
@@ -98,6 +125,25 @@ def projection_shapes(cfg):
     merged = [("wqkv", D, (H + 2 * Kv) * hd), ("wo", H * hd, D),
               ("w_gateup", D, 2 * F), ("w_down", F, D)]
     return unmerged, merged
+
+
+def lut_bound(M, K, N):
+    nbytes = M * K * 4 + K * N + 65536 * 2 + M * N * 4
+    return nbytes / HBM_BPS, 2 * M * K * N / INT8_OPS
+
+
+def residual_bound(M, K, N, r):
+    """The function's own bound: A@B + F[a]G[b] summed over k is
+    sum_k T[a, b] over one precomputed (256, 256) float32 table
+    T = a*b + F G, lut_matmul's structure, counted by its convention."""
+    nbytes = M * K * 4 + K * N + 2 * 256 * r * 4 + M * N * 4
+    return nbytes / HBM_BPS, 2 * M * K * N / INT8_OPS
+
+
+def residual_factored_ms(M, K, N, r):
+    """The bound of the kernel's own algorithm (exact product and rank-r
+    correction as 2MKN(1+r) float32 flops), in ms."""
+    return 2 * M * K * N * (1 + r) / F32_FLOPS * 1e3
 
 
 def delta_bound(M, K, N):
@@ -162,11 +208,65 @@ def check_kernels(cfg, dev):
     return errs
 
 
+def train_kinds(cfg):
+    """The distinct (K, N) of a training layer's projections, each with
+    the projections that have it."""
+    kinds = {}
+    for name, K, N in projection_shapes(cfg)[0]:     # the 7 unmerged
+        kinds.setdefault((K, N), []).append(name)
+    return [("/".join(v), K, N) for (K, N), v in kinds.items()]
+
+
+def check_train_kernels(cfg, dev, errs):
+    """lut_matmul and residual_matmul against their plain versions at the
+    training projections' shapes (M = TB*TS) and a ragged shape, both
+    modes; lut_matmul also on the 65,536-pair sweep."""
+    import torch
+    from repro_torch.kernels import check, ops
+    M = TB * TS
+    errs["lut_matmul"] = errs["residual_matmul"] = 0.0
+    shapes = train_kinds(cfg) + [("ragged", 131, 45)]
+    for signed in (False, True):
+        mode = "sym_i8" if signed else "asym_u8"
+        for design in ("design2", "exact"):
+            vals = torch.arange(256, dtype=torch.int32)
+            case = dict(check.lut_case(1, 1, 1, signed, 0, dev,
+                                       design=design),
+                        a=vals[:, None].contiguous().to(dev),
+                        b=vals[None, :].to(torch.uint8).contiguous().to(dev))
+            check.check_lut(case)
+            table = (ops.get_signed_lut if signed else ops.get_lut)(design)
+            got = ops.lut_matmul(**case).cpu().numpy()
+            assert (got == table).all(), "lut_matmul != gate-level table"
+            for i, (name, K, N) in enumerate(shapes):
+                m = 77 if name == "ragged" else M
+                check.check_lut(check.lut_case(m, K, N, signed, 200 + i, dev,
+                                               design=design))
+                log(f"[kernels] lut_matmul {mode} {design} {name} M={m} "
+                    f"K={K} N={N}: bit-exact (and the 65,536-pair sweep "
+                    f"equals the gate-level table)")
+        for rank in (4, RANK, 256):
+            for i, (name, K, N) in enumerate(shapes):
+                if rank == 256 and name not in ("ragged", "wk/wv"):
+                    continue       # r=256: one full-width shape suffices
+                m = 77 if name == "ragged" else M
+                r = check.check_residual(check.residual_case(
+                    m, K, N, signed, rank, 300 + i, dev))
+                errs["residual_matmul"] = max(errs["residual_matmul"],
+                                              r["max_abs_err"])
+                log(f"[kernels] residual_matmul {mode} r={rank} {name} "
+                    f"M={m} K={K} N={N}: max |err| {r['max_abs_err']:.3e} "
+                    f"({r['max_rel_err']:.3e} of max |out|; tolerance "
+                    f"{check.RESID_TOL_REL})")
+
+
 class PlainGuard:
     """Makes the plain versions raise if the main path hands them a CUDA
     tensor (the wrappers must launch the kernels instead)."""
 
-    NAMES = ("delta_matmul_ref", "fused_qdot_ref", "decode_attention_step_ref")
+    NAMES = ("delta_matmul_ref", "fused_qdot_ref", "decode_attention_step_ref",
+             "lut_matmul_ref", "approx_matmul_ref",
+             "residual_corrected_matmul_ref")
 
     def __enter__(self):
         import torch
@@ -199,7 +299,8 @@ def serve_full_width(cfg):
     want = {"delta_matmul": 7 * L * CALIB_TOKENS,
             # warm prefill + warm decode + timed prefill + G-1 decode steps
             "fused_qdot": 4 * L * (G + 2),
-            "decode_attention": L * (CALIB_TOKENS + G)}
+            "decode_attention": L * (CALIB_TOKENS + G),
+            "lut_matmul": 0, "residual_matmul": 0}
     totals = dict.fromkeys(want, 0)
     rows = {}
     for mode in ("asym_u8", "sym_i8"):
@@ -321,17 +422,155 @@ def parity_two_layers(cfg_full):
             f"differ: {flips} of {c_g['k'].numel()} each")
 
 
+def train_full_width(cfg):
+    """The training path at full width through the launcher, one run per
+    (backend, mode); returns the launches of the two training kernels."""
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    L = cfg.n_layers
+    totals = {"lut_matmul": 0, "residual_matmul": 0}
+    rows = {}
+    for backend, mode, extra in TRAIN_RUNS:
+        ckpt_run = (backend, mode) == CKPT_RUN
+        if ckpt_run:
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
+            extra = extra + ["--ckpt-dir", CKPT_DIR]
+        argv = ["--arch", "qwen3-1.7b", "--batch", str(TB), "--seq", str(TS),
+                "--steps", str(TSTEPS), "--backend", backend,
+                "--quant-mode", mode, "--log-every", "1"] + extra
+        mb = int(extra[1]) if "--microbatches" in extra else 1
+        kernel = "lut_matmul" if backend == "xla" else "residual_matmul"
+        # 7 projections x layers x (forward + remat recompute) per
+        # microbatch, every step
+        want = dict.fromkeys(ops.LAUNCHES, 0)
+        want[kernel] = 7 * L * 2 * mb * TSTEPS
+        with PlainGuard():
+            ops.reset_launches()
+            r = train.run(train.parse_args(argv))
+            counts = dict(ops.LAUNCHES)
+        tag = f"{backend} {mode} {' '.join(extra)}".strip()
+        log(f"[train] {tag}: losses {r.losses}, grad norms {r.grad_norms}")
+        log(f"[train] {tag}: ms per step {[t * 1e3 for t in r.step_s]}; "
+            f"peak device memory {r.peak_bytes / 2**30:.3f} GiB")
+        log(f"[train] {tag}: launches {counts} (expected {want})")
+        assert counts == want, f"{tag}: launch counts {counts} != {want}"
+        assert len(r.losses) == TSTEPS
+        assert all(math.isfinite(x) for x in r.losses + r.grad_norms), tag
+        totals[kernel] += counts[kernel]
+        rows[tag] = {"ms_per_step": [t * 1e3 for t in r.step_s],
+                     "losses": r.losses, "grad_norms": r.grad_norms,
+                     "peak_gib": r.peak_bytes / 2**30}
+        if ckpt_run:
+            checkpoint_round_trip(r)
+        del r
+        torch.cuda.empty_cache()
+    log("[train] " + json.dumps({"train": rows}))
+    return totals
+
+
+def checkpoint_round_trip(r):
+    """The full-width state a --ckpt-dir run ended with (weights, both
+    moments, step) restores from its checkpoint onto the card equal, leaf
+    by leaf; then the checkpoint is deleted."""
+    import torch
+    from repro_torch.train import checkpoint as ckpt
+    try:
+        path = os.path.join(CKPT_DIR, f"step_{TSTEPS:08d}")
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        free = shutil.disk_usage(CKPT_DIR).free
+        tmpl = {"params": r.params, "opt": r.opt_state}
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore(CKPT_DIR, tmpl)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        assert step == TSTEPS, step
+        want, got = ckpt._flatten(tmpl), ckpt._flatten(restored)
+        assert list(want) == list(got)
+        for k, a in want.items():
+            assert a.device == got[k].device and a.dtype == got[k].dtype \
+                and torch.equal(a, got[k]), k
+        log(f"[train] checkpoint round trip at full width: step {step}, "
+            f"{len(want)} tensors, {nbytes / 1e9:.3f} GB on disk "
+            f"({free / 1e9:.1f} GB free beside it), restored (sha256 "
+            f"checked) onto {a.device} in {dt:.1f}s, all equal")
+        del restored, got
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def train_parity_two_layers(cfg_full):
+    """One train step at 2 layers of full width, the same weights and
+    batch, on the card and on the CPU.  Asserted: every lut_matmul /
+    residual_matmul launch of the card's step equals its plain version on
+    the CPU from the same inputs (CpuShadow), with the path's launch
+    count.  Reported: the free-running loss and gradient gaps (a float32
+    ulp of PyTorch's CPU and CUDA glue can flip a dynamic quantization
+    step, and the random-weight model amplifies each flip)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import check
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    torch.set_num_threads(os.cpu_count() or 1)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab, (1, 17)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    ocfg = OptConfig(warmup_steps=5, total_steps=100)
+    for backend, mode in (("xla", "asym_u8"), ("residual", "sym_i8")):
+        name = "lut_matmul" if backend == "xla" else "residual_matmul"
+        q = QuantConfig(design="design2", backend=backend, mode=mode)
+        step = make_train_step(cfg, q, ocfg, remat=True)
+        p_cpu = T.init_params(torch.Generator().manual_seed(1), cfg,
+                              device="cpu")
+        p0 = opt_mod.tree_map(torch.clone, p_cpu)
+        p_gpu = opt_mod.tree_map(lambda t: t.to("cuda", copy=True), p_cpu)
+        t0 = time.perf_counter()
+        with check.CpuShadow(check.CpuShadow.TRAIN) as sh:
+            p_gpu, _, m_gpu = step(p_gpu, opt_mod.init(p_gpu, ocfg),
+                                   {k: v.to("cuda") for k, v in
+                                    batch.items()})
+        st = sh.stats[name]
+        want = 7 * cfg.n_layers * 2
+        assert st["calls"] == want, (name, st["calls"], want)
+        log(f"[train parity] {backend} {mode}: {st['calls']} {name} "
+            f"launches held against the CPU plain version; max |err| "
+            f"{st['max_abs_err']:.3e} ({time.perf_counter() - t0:.1f}s)")
+        t0 = time.perf_counter()
+        p_cpu, _, m_cpu = step(p_cpu, opt_mod.init(p_cpu, ocfg), batch)
+        upd_c = torch.cat([(a - b).reshape(-1) for a, b in zip(
+            opt_mod.tree_leaves(p_cpu), opt_mod.tree_leaves(p0))])
+        upd_g = torch.cat([(a.cpu() - b).reshape(-1) for a, b in zip(
+            opt_mod.tree_leaves(p_gpu), opt_mod.tree_leaves(p0))])
+        gap = float((upd_g - upd_c).norm() / upd_c.norm())
+        log(f"[train parity] {backend} {mode} free-running card vs CPU "
+            f"({time.perf_counter() - t0:.1f}s, not asserted): loss "
+            f"{float(m_gpu['loss'])!r} vs {float(m_cpu['loss'])!r}; "
+            f"grad_norm {float(m_gpu['grad_norm'])!r} vs "
+            f"{float(m_cpu['grad_norm'])!r}; parameter update gap "
+            f"{gap:.3e} of its norm")
+        del p_gpu, p_cpu, p0
+        torch.cuda.empty_cache()
+
+
 def time_kernels(cfg, dev, launches, errs):
     import torch
     from repro_torch.kernels import check, ops, ref
     unmerged, merged = projection_shapes(cfg)
     rows, summary = [], {}
 
-    def row(kernel, shape, ms, plain_ms, bounds):
+    def row(kernel, shape, ms, plain_ms, bounds, **extra):
         b_bytes, b_ops = bounds
         r = {"kernel": kernel, "shape": shape, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": max(b_bytes, b_ops) * 1e3,
-             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+             **extra}
         rows.append(r)
         log("[timing] " + json.dumps(r))
         return r
@@ -379,6 +618,35 @@ def time_kernels(cfg, dev, launches, errs):
     summary["decode_attention"] = (
         {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}, [r])
 
+    # lut_matmul and residual_matmul: the training projections at
+    # M = TB*TS, weighted by how many projections of a layer have each shape
+    M = TB * TS
+    for kname, tag in (("lut_matmul", "lut"), ("residual_matmul", "resid")):
+        rs, w = [], []
+        for i, (name, K, N) in enumerate(train_kinds(cfg)):
+            signed = False
+            if tag == "lut":
+                c = check.lut_case(M, K, N, signed, 400 + i, dev)
+                plain_c = dict(c, lut=ops._widen(c["lut"], c["unsigned"]))
+                del plain_c["unsigned"]
+                rs.append(row(kname, f"{name} M={M} K={K} N={N}",
+                              cuda_time(lambda: ops.lut_matmul(**c), 10),
+                              cuda_time(lambda: ref.lut_matmul_ref(
+                                  **plain_c), 2),
+                              lut_bound(M, K, N)))
+            else:
+                c = check.residual_case(M, K, N, signed, RANK, 500 + i, dev)
+                rs.append(row(kname, f"{name} M={M} K={K} N={N} r={RANK}",
+                              cuda_time(lambda: ops.residual_matmul(**c), 5),
+                              cuda_time(lambda: ref.
+                                        residual_corrected_matmul_ref(**c),
+                                        2),
+                              residual_bound(M, K, N, RANK),
+                              factored_bound_ms=residual_factored_ms(
+                                  M, K, N, RANK)))
+            w.append(name.count("/") + 1)
+        summary[kname] = (mean(rs, w), rs)
+
     kernels = []
     for name, (m, rs) in summary.items():
         src, replaces = SOURCES[name]
@@ -391,7 +659,8 @@ def time_kernels(cfg, dev, launches, errs):
             "bound_by": max(set(by), key=by.count), "library_ms": None})
     log("[timing] library_ms is null: no single PyTorch call computes the "
         "approximate (delta-table) product, the fused quantize-product-"
-        "dequant, or the qk-norm/rope/bf16-row decode attention step")
+        "dequant, the qk-norm/rope/bf16-row decode attention step, the "
+        "product-LUT gather sum or the gathered rank-r correction")
     return kernels
 
 
@@ -440,11 +709,18 @@ def main() -> int:
     with torch.no_grad():
         phase("3. kernels against their plain versions")
         errs = check_kernels(cfg, dev)
+        check_train_kernels(cfg, dev, errs)
         phase("4. full-width serve (main path)")
         launches = serve_full_width(cfg)
         phase("5. slice parity: card vs CPU at 2 layers of full width")
         parity_two_layers(cfg)
-        phase("6. timing")
+    # training needs autograd: outside the no_grad block
+    phase("6. full-width QAT training")
+    launches.update(train_full_width(cfg))
+    phase("7. train parity: card vs CPU at 2 layers of full width")
+    train_parity_two_layers(cfg)
+    with torch.no_grad():
+        phase("8. timing")
         kernels = time_kernels(cfg, dev, launches, errs)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

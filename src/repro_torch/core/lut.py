@@ -9,6 +9,7 @@ the sum is bit-exact against the gate level by construction.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -73,3 +74,33 @@ def build_delta_lut(name: str, signed: bool = False) -> np.ndarray:
     assert (d.astype(np.int64) == e.astype(np.int64)).all(), \
         f"delta LUT narrowing overflowed for design {name!r}"
     return d
+
+
+def _svd_factors(e: np.ndarray, rank: Optional[int]
+                 ) -> Tuple[np.ndarray, np.ndarray, float]:
+    u, s, vt = np.linalg.svd(e, full_matrices=False)
+    if rank is None:
+        rank = int((s > s[0] * 1e-12).sum()) if s[0] > 0 else 0
+    F = u[:, :rank] * s[:rank]
+    G = vt[:rank, :]
+    resid = float(np.abs(F @ G - e).max()) if rank else float(np.abs(e).max())
+    return F.astype(np.float32), G.astype(np.float32), resid
+
+
+@lru_cache(maxsize=None)
+def error_factors(name: str, rank: Optional[int] = None,
+                  ) -> Tuple[np.ndarray, np.ndarray, float]:
+    """SVD factorization  e ~= F @ G  with F (256,r), G (r,256) float32.
+
+    Returns (F, G, max_abs_residual).  rank=None takes the exact rank of
+    the error surface (the factorization is then exact up to float
+    rounding)."""
+    return _svd_factors(error_table(name).astype(np.float64), rank)
+
+
+@lru_cache(maxsize=None)
+def signed_error_factors(name: str, rank: Optional[int] = None,
+                         ) -> Tuple[np.ndarray, np.ndarray, float]:
+    """SVD factors of the SIGNED error surface; rows/cols indexed by the
+    offset-shifted operand (a+128), matching build_signed_lut."""
+    return _svd_factors(signed_error_table(name).astype(np.float64), rank)

@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("delta_matmul", "fused_qdot", "decode_attention")
+KERNELS = ("delta_matmul", "fused_qdot", "decode_attention", "lut_matmul",
+           "residual_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -36,6 +37,9 @@ SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
                          [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _I,
                           _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+    "lut_matmul": ("lut_matmul_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "residual_matmul": ("residual_matmul_launch",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _FUNCS: dict = {}     # name -> bound C function (this process)

@@ -13,6 +13,13 @@ Tolerances, and why:
                     no FMA contraction); with compensation the row sum of
                     mu_r[qx] is a float32 sum in another order, held to
                     rtol FUSED_RTOL plus FUSED_ATOL_REL * max|y|.
+  lut_matmul        exact: integer arithmetic in any order; also equal to
+                    the gate-level product table on the 65,536-pair sweep.
+  residual_matmul   the exact part is an int32 sum converted once (exact
+                    as the plain version's); the rank-r correction is a
+                    float32 sum over K*r products in another order than
+                    the plain version's matmul, held to RESID_TOL_REL *
+                    max|out|.
   decode_attention  the bf16 v row is exact.  The bf16 k row may land one
                     bf16 step away (2^-8 to 2^-7 of the value, ROW_RTOL)
                     where the kernel's and torch's rmsnorm/rope float math
@@ -39,6 +46,7 @@ ATTN_TOL = 2e-5
 ROW_RTOL = 2 ** -7
 ROW_ATOL_REL = 2 ** -20
 ROW_FLIP_MAX = 0.01
+RESID_TOL_REL = 1e-5
 
 
 def _launches(name, fn):
@@ -66,6 +74,55 @@ def check_delta(case) -> dict:
     want = ref.delta_matmul_ref(**case)
     assert torch.equal(got, want), "delta_matmul: kernel != plain"
     return {"max_abs_err": 0.0}
+
+
+def lut_case(M, K, N, signed, seed, device, design="design2"):
+    """Inputs of one lut_matmul launch as the 'xla' backend makes them:
+    operands pre-shifted into [0, 255], the narrowed product table."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 256, (M, K)).astype(np.int32)
+    b = rng.integers(0, 256, (K, N)).astype(np.uint8)
+    lut, unsigned = ops.narrow_lut(ops.get_signed_lut(design) if signed
+                                   else ops.get_lut(design))
+    return dict(a=torch.from_numpy(a).to(device),
+                b=torch.from_numpy(b).to(device), lut=lut.to(device),
+                unsigned=unsigned)
+
+
+def check_lut(case) -> dict:
+    got = _launches("lut_matmul", lambda: ops.lut_matmul(**case))
+    want = ref.lut_matmul_ref(case["a"], case["b"],
+                              ops._widen(case["lut"], case["unsigned"]))
+    assert torch.equal(got, want), "lut_matmul: kernel != plain"
+    return {"max_abs_err": 0.0}
+
+
+def residual_case(M, K, N, signed, rank, seed, device, design="design2"):
+    rng = np.random.default_rng(seed)
+    lo, hi = (-128, 128) if signed else (0, 256)
+    a = torch.from_numpy(rng.integers(lo, hi, (M, K)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(lo, hi, (K, N)).astype(np.int32))
+    F, G = ops.get_factors(design, rank, signed)
+    return dict(a=a.to(device),
+                b=b.to(torch.int8 if signed else torch.uint8).to(device),
+                F=torch.from_numpy(F).to(device),
+                G=torch.from_numpy(G).to(device),
+                offset=128 if signed else 0)
+
+
+def _resid_err(got, want) -> dict:
+    err = float((got - want).abs().max())
+    scale = max(float(want.abs().max()), 1e-30)
+    assert err <= RESID_TOL_REL * scale, \
+        f"residual_matmul: max |kernel - plain| {err:.3e} > " \
+        f"{RESID_TOL_REL} * max|out| ({scale:.3e})"
+    return {"max_abs_err": err, "max_rel_err": err / scale}
+
+
+def check_residual(case) -> dict:
+    got = _launches("residual_matmul", lambda: ops.residual_matmul(**case))
+    want = ref.residual_corrected_matmul_ref(**case)
+    return _resid_err(got, want)
 
 
 def fused_case(M, K, N, signed, seed, device, compensate=True):
@@ -208,16 +265,25 @@ class CpuShadow:
     the absolute part of ATTN_TOL scaled by max|v|, since the output is a
     convex combination of v rows."""
 
-    NAMES = ("delta_matmul", "fused_qdot_packed", "decode_attention_step")
+    SERVE = ("delta_matmul", "fused_qdot_packed", "decode_attention_step")
+    TRAIN = ("lut_matmul", "residual_matmul")
+
+    def __init__(self, names=SERVE):
+        """names: the ops wrappers to shadow (the serving path's three by
+        default; CpuShadow.TRAIN for the training kernels)."""
+        self.names = tuple(names)
 
     def __enter__(self):
-        self.saved = {n: getattr(ops, n) for n in self.NAMES}
+        shadows = {"delta_matmul": self._delta,
+                   "fused_qdot_packed": self._fused,
+                   "decode_attention_step": self._attention,
+                   "lut_matmul": self._lut,
+                   "residual_matmul": self._residual}
+        self.saved = {n: getattr(ops, n) for n in self.names}
         self.stats = {n: {"calls": 0, "max_abs_err": 0.0, "row_flips": 0,
-                          "row_entries": 0} for n in self.NAMES}
-        for n, fn in (("delta_matmul", self._delta),
-                      ("fused_qdot_packed", self._fused),
-                      ("decode_attention_step", self._attention)):
-            setattr(ops, n, fn)
+                          "row_entries": 0} for n in self.names}
+        for n in self.names:
+            setattr(ops, n, shadows[n])
         return self
 
     def __exit__(self, *exc):
@@ -236,6 +302,22 @@ class CpuShadow:
         want = ref.delta_matmul_ref(_cpu(a), _cpu(b), _cpu(dlut), offset)
         assert torch.equal(out.cpu(), want), "delta_matmul: card != cpu"
         self._note("delta_matmul", 0.0)
+        return out
+
+    def _lut(self, a, b, lut, unsigned):
+        out = self.saved["lut_matmul"](a, b, lut, unsigned)
+        want = ref.lut_matmul_ref(_cpu(a), _cpu(b),
+                                  ops._widen(_cpu(lut), unsigned))
+        assert torch.equal(out.cpu(), want), "lut_matmul: card != cpu"
+        self._note("lut_matmul", 0.0)
+        return out
+
+    def _residual(self, a, b, F, G, offset=0):
+        out = self.saved["residual_matmul"](a, b, F, G, offset)
+        want = ref.residual_corrected_matmul_ref(
+            *(_cpu(t) for t in (a, b, F, G)), offset)
+        self._note("residual_matmul", _resid_err(out.cpu(), want)
+                   ["max_abs_err"])
         return out
 
     def _fused(self, x, qw, dlut, scal, ntab, comp_r, *, signed=False,

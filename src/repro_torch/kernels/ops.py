@@ -1,6 +1,6 @@
 """Kernel wrappers and the operators the quantized layers call.
 
-Three kernels, each written by hand in CUDA C++ for Hopper
+Five kernels, each written by hand in CUDA C++ for Hopper
 (``csrc/*.cu``) with its plain PyTorch version in ``ref``:
 
   delta_matmul      exact integer product + delta-table gather
@@ -8,6 +8,8 @@ Three kernels, each written by hand in CUDA C++ for Hopper
                     the dequant epilogue
   decode_attention  qk-norm + rope + bf16 row rounding + masked GQA
                     attention with an online softmax, one decode step
+  lut_matmul        product-LUT gather sum (16-bit table in shared memory)
+  residual_matmul   exact product + rank-r error correction, float32
 
 The lowering follows the tensors' device: a CUDA tensor launches the
 kernel (or the wrapper raises on what the kernel does not take), a CPU
@@ -22,7 +24,8 @@ import torch
 from . import ref
 
 # kernel name -> number of launches in this process (reset_launches)
-LAUNCHES = {"delta_matmul": 0, "fused_qdot": 0, "decode_attention": 0}
+LAUNCHES = {"delta_matmul": 0, "fused_qdot": 0, "decode_attention": 0,
+            "lut_matmul": 0, "residual_matmul": 0}
 
 _LUT_CACHE: dict = {}
 
@@ -32,6 +35,28 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def get_lut(design: str) -> np.ndarray:
+    """(256,256) int32 product table of a registered design; 'exact'
+    is the true product."""
+    if design not in _LUT_CACHE:
+        if design == "exact":
+            v = np.arange(256, dtype=np.int64)
+            _LUT_CACHE[design] = (v[:, None] * v[None, :]).astype(np.int32)
+        else:
+            from ..core import lut as lutmod
+            _LUT_CACHE[design] = lutmod.build_lut(design)
+    return _LUT_CACHE[design]
+
+
+def get_signed_lut(design: str) -> np.ndarray:
+    """(256,256) int32 signed product table indexed [a+128, b+128]."""
+    key = ("signed", design)
+    if key not in _LUT_CACHE:
+        from ..core import lut as lutmod
+        _LUT_CACHE[key] = lutmod.build_signed_lut(design)
+    return _LUT_CACHE[key]
+
+
 def get_delta_lut(design: str, signed: bool = False) -> np.ndarray:
     """Delta table D = approx - exact, int16 where the design's error
     range allows (core.lut.build_delta_lut)."""
@@ -39,6 +64,57 @@ def get_delta_lut(design: str, signed: bool = False) -> np.ndarray:
     if key not in _LUT_CACHE:
         from ..core import lut as lutmod
         _LUT_CACHE[key] = lutmod.build_delta_lut(design, signed)
+    return _LUT_CACHE[key]
+
+
+def get_factors(design: str, rank: int = 32, signed: bool = False):
+    """(F (256, rank), G (rank, 256)) float32 SVD factors of the design's
+    error surface (core.lut.error_factors / signed_error_factors)."""
+    from ..core import lut as lutmod
+    fn = lutmod.signed_error_factors if signed else lutmod.error_factors
+    F, G, _ = fn(design, rank)
+    return F, G
+
+
+def narrow_lut(lut):
+    """A (256,256) product table narrowed to 16 bits for the lut_matmul
+    kernel: (int16 tensor holding the entries' low 16 bits, unsigned),
+    where ``unsigned`` says the bits are read as uint16 (every value in
+    [0, 65535]) rather than int16 (every value in [-32768, 32767]).
+    Raises ValueError for a table that fits neither."""
+    arr = np.asarray(lut.cpu() if isinstance(lut, torch.Tensor) else lut)
+    if arr.shape != (256, 256) or arr.dtype.kind not in "iu":
+        raise ValueError(f"lut_matmul: the table must be a (256, 256) "
+                         f"integer table, got {arr.dtype} {arr.shape}")
+    lo, hi = int(arr.min()), int(arr.max())
+    if 0 <= lo and hi <= 0xFFFF:
+        bits = arr.astype(np.uint16).view(np.int16)
+        return torch.from_numpy(bits), True
+    if -0x8000 <= lo and hi <= 0x7FFF:
+        return torch.from_numpy(arr.astype(np.int16)), False
+    raise ValueError(f"lut_matmul: table values span [{lo}, {hi}], which "
+                     f"fits neither uint16 nor int16 (the kernel keeps a "
+                     f"16-bit table in shared memory)")
+
+
+def lut_table(design: str, signed: bool, device):
+    """The design's product table narrowed by narrow_lut, on ``device``
+    (cached per device): (int16 tensor, unsigned)."""
+    key = ("lut_t", design, signed, str(torch.device(device)))
+    if key not in _LUT_CACHE:
+        t, unsigned = narrow_lut(get_signed_lut(design) if signed
+                                 else get_lut(design))
+        _LUT_CACHE[key] = (t.to(device), unsigned)
+    return _LUT_CACHE[key]
+
+
+def factor_tables(design: str, rank: int, signed: bool, device):
+    """get_factors as float32 tensors on ``device`` (cached per device)."""
+    key = ("factors_t", design, rank, signed, str(torch.device(device)))
+    if key not in _LUT_CACHE:
+        F, G = get_factors(design, rank, signed)
+        _LUT_CACHE[key] = (torch.from_numpy(F).to(device),
+                           torch.from_numpy(G).to(device))
     return _LUT_CACHE[key]
 
 
@@ -123,30 +199,180 @@ def delta_matmul(a: torch.Tensor, b: torch.Tensor, dlut: torch.Tensor,
     return out
 
 
+# ---------------------------------------------------------------------------
+# lut_matmul
+# ---------------------------------------------------------------------------
+
+def _widen(lut: torch.Tensor, unsigned: bool) -> torch.Tensor:
+    t = lut.to(torch.int32)
+    return t & 0xFFFF if unsigned else t
+
+
+def lut_matmul(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor,
+               unsigned: bool) -> torch.Tensor:
+    """S[m,n] = sum_k LUT[a[m,k], b[k,n]], int32: the product-LUT gather
+    sum, offset-free (signed operands arrive pre-shifted by +128).
+
+    a: (M, K) int32 and b: (K, N) uint8 on the card, any integer dtype on
+    the CPU, values in [0, 255].  (lut, unsigned): the (256, 256) product
+    table as ``narrow_lut`` narrows it, an int16 tensor whose 16-bit
+    entries read as uint16 when ``unsigned`` and as int16 otherwise.
+    """
+    if a.device.type == "cpu":
+        return ref.lut_matmul_ref(a, b, _widen(lut, unsigned))
+    if a.device.type != "cuda":
+        raise _wrong_device("lut_matmul", a)
+    name = "lut_matmul"
+    _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
+           f"{name}: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    _check(a.dtype == torch.int32, f"{name}: a must be int32, got {a.dtype}")
+    _check(b.dtype == torch.uint8, f"{name}: b must be uint8 (signed "
+           f"operands pre-shifted by +128), got {b.dtype}")
+    _check(tuple(lut.shape) == (256, 256) and lut.dtype == torch.int16,
+           f"{name}: the narrowed table must be int16 (256, 256), got "
+           f"{lut.dtype} {tuple(lut.shape)}")
+    _check_cuda(name, a, b, lut)
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    from ._build import kernel
+    err = kernel(name)(a.data_ptr(), b.data_ptr(), lut.data_ptr(),
+                       out.data_ptr(), M, K, N, int(bool(unsigned)),
+                       _stream())
+    _raise_cuda(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# residual_matmul
+# ---------------------------------------------------------------------------
+
+def residual_matmul(a: torch.Tensor, b: torch.Tensor, F: torch.Tensor,
+                    G: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """S = float(A @ B) + sum_k F[a+off] G[:, b+off], float32: exact
+    product plus the rank-r error correction.
+
+    a: (M, K) int32; b: (K, N) uint8 (offset 0) or int8 (offset 128) on
+    the card, any integer dtype on the CPU; F: (256, r), G: (r, 256)
+    float32 with 1 <= r <= 256.
+    """
+    if a.device.type == "cpu":
+        return ref.residual_corrected_matmul_ref(a, b, F, G, offset)
+    if a.device.type != "cuda":
+        raise _wrong_device("residual_matmul", a)
+    name = "residual_matmul"
+    _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
+           f"{name}: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    _check(a.dtype == torch.int32, f"{name}: a must be int32, got {a.dtype}")
+    _check((b.dtype, offset) in ((torch.uint8, 0), (torch.int8, 128)),
+           f"{name}: b must be uint8 with offset 0 or int8 with offset "
+           f"128, got {b.dtype} with offset {offset}")
+    r = F.shape[-1] if F.dim() == 2 else 0
+    _check(F.dim() == 2 and F.shape[0] == 256 and 1 <= r <= 256
+           and tuple(G.shape) == (r, 256),
+           f"{name}: factors must be F (256, r) and G (r, 256) with "
+           f"1 <= r <= 256, got {tuple(F.shape)} and {tuple(G.shape)}")
+    _check(F.dtype == torch.float32 == G.dtype,
+           f"{name}: factors must be float32")
+    _check_cuda(name, a, b, F, G)
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    from ._build import kernel
+    err = kernel(name)(a.data_ptr(), b.data_ptr(), F.data_ptr(),
+                       G.data_ptr(), out.data_ptr(), M, K, N, r, offset,
+                       int(b.dtype == torch.int8), _stream())
+    _raise_cuda(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# approx_matmul: every backend name of the reference
+# ---------------------------------------------------------------------------
+
+LUT_BACKENDS = ("xla", "pallas_legacy")
+RESIDUAL_BACKENDS = ("residual", "residual_xla")
+DELTA_BACKENDS = ("pallas", "delta", "delta_xla", "fused")
+
+
+def _approx_matmul_2d(a2, b, design, backend, rank, signed):
+    off = 128 if signed else 0
+    cuda = a2.is_cuda
+    if backend == "exact":
+        return ref.exact_matmul_ref(a2, b)
+    if backend in LUT_BACKENDS:
+        # offset-free kernel: operands pre-shifted into the table's
+        # [0, 255] index domain
+        lut, unsigned = lut_table(design, signed, a2.device)
+        a2 = a2.to(torch.int32) + off
+        b = b.to(torch.int32) + off
+        if cuda:
+            a2, b = a2.contiguous(), b.to(torch.uint8).contiguous()
+        return lut_matmul(a2, b, lut, unsigned)
+    if cuda:
+        a2 = a2.to(torch.int32).contiguous()
+        b = b.to(torch.int8 if signed else torch.uint8).contiguous()
+    if backend in RESIDUAL_BACKENDS:
+        F, G = factor_tables(design, rank, signed, a2.device)
+        return residual_matmul(a2, b, F, G, offset=off)
+    if backend in DELTA_BACKENDS:
+        return delta_matmul(a2, b, delta_table(design, signed, a2.device),
+                            offset=off)
+    raise ValueError(f"unknown backend {backend!r}; expected one of "
+                     f"{LUT_BACKENDS + RESIDUAL_BACKENDS + DELTA_BACKENDS}"
+                     f" or 'exact'")
+
+
+class ApproxMatmul(torch.autograd.Function):
+    """approx_matmul with the reference's straight-through VJP
+    (``_approx_matmul_bwd``): the backward pass differentiates the exact
+    product, da = g @ b.T and db = a.T @ g in float32.  Integer operands
+    carry no gradient; float-valued ones get this one."""
+
+    @staticmethod
+    def forward(ctx, a, b, design, backend, rank, signed):
+        ctx.save_for_backward(a, b)
+        lead = a.shape[:-2]
+        K = a.shape[-1]
+        out = _approx_matmul_2d(a.reshape(-1, K), b, design, backend, rank,
+                                signed)
+        return out.float().reshape(*lead, a.shape[-2], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        af, bf = a.float(), b.float()
+        da = torch.matmul(g, bf.T)
+        db = torch.matmul(af.reshape(-1, af.shape[-1]).T,
+                          g.reshape(-1, g.shape[-1]))
+        return da, db, None, None, None, None
+
+
 def approx_matmul(a: torch.Tensor, b: torch.Tensor, design: str = "design2",
-                  backend: str = "delta", signed: bool = False
-                  ) -> torch.Tensor:
-    """S = A (x)_approx B over integer operands, float32 out.
+                  backend: str = "delta", rank: int = 32,
+                  signed: bool = False) -> torch.Tensor:
+    """S = A (x)_approx B over integer-valued operands, float32 out.
 
     a: (..., M, K), b: (K, N); uint8-valued by default, int8-valued with
-    ``signed``.  Backends: 'delta' (the delta kernel; 'fused' on integer
-    operands has no float ends to fuse and means 'delta') and 'exact'.
+    ``signed``.  Every backend name of the reference is accepted; the
+    port has no XLA, so a name that says 'xla' there means the same
+    function here.  On a CUDA tensor:
+      'xla', 'pallas_legacy'          -> lut_matmul (product-LUT gather;
+                                         signed operands pre-shifted)
+      'residual', 'residual_xla'      -> residual_matmul (exact product +
+                                         rank-``rank`` correction;
+                                         approximate)
+      'pallas', 'delta', 'delta_xla', -> delta_matmul (exact product +
+      'fused'                            delta gather; 'fused' on integer
+                                         operands has no float ends)
+      'exact'                         -> the exact integer product
+    On a CPU tensor each backend takes its kernel's plain version.  The
+    backward pass is the reference's straight-through one (ApproxMatmul).
     """
-    lead = a.shape[:-2]
-    K = a.shape[-1]
-    a2 = a.reshape(-1, K)
-    if backend == "exact":
-        out = ref.exact_matmul_ref(a2, b)
-    elif backend in ("delta", "fused"):
-        if a2.is_cuda:
-            a2 = a2.to(torch.int32).contiguous()
-            b = b.to(torch.int8 if signed else torch.uint8).contiguous()
-        out = delta_matmul(a2, b, delta_table(design, signed, a.device),
-                           offset=128 if signed else 0)
-    else:
-        raise ValueError(f"backend {backend!r} is not ported (ported: "
-                         f"'delta', 'fused', 'exact')")
-    return out.float().reshape(*lead, a.shape[-2], b.shape[-1])
+    return ApproxMatmul.apply(a, b, design, backend, rank, signed)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels.
+"""Plain PyTorch versions of the five kernels.
 
 Each function here computes what one CUDA kernel of ``csrc/`` computes,
 op for op after the JAX package's XLA twins, on any device.  The kernel
@@ -67,6 +67,66 @@ def delta_matmul_ref(a: torch.Tensor, b: torch.Tensor, dlut,
     ab = ab.permute(1, 0, 2) * 256                          # (nb, M, kb)
     bb = ((b.to(torch.int32) + offset) & 0xFF).reshape(K // kb, kb, N)
     return _delta_blocks(exact, ab, bb, flat)
+
+
+def _gather_blocks(a_idx, b_idx, flat, budget: int = 1 << 24):
+    """sum_k flat[a_idx[m,k] + b_idx[k,n]] (int32), K sliced so that no
+    gathered block holds more than ``budget`` entries (never the whole
+    (M,K,N) index surface).  Integer sums: the slicing is exact."""
+    M, K = a_idx.shape
+    N = b_idx.shape[1]
+    out = torch.zeros((M, N), dtype=torch.int32, device=a_idx.device)
+    kb = max(1, min(K, budget // max(M * N, 1)))
+    for k0 in range(0, K, kb):
+        idx = a_idx[:, k0:k0 + kb, None] + b_idx[None, k0:k0 + kb, :]
+        out += flat[idx].sum(1, dtype=torch.int32)
+    return out
+
+
+def approx_matmul_ref(a: torch.Tensor, b: torch.Tensor, lut,
+                      offset: int = 0) -> torch.Tensor:
+    """S[m,n] = sum_k LUT[a[m,k]+offset, b[k,n]+offset]  (int32): the
+    product-LUT gather sum.  a: (M,K), b: (K,N) integer tensors,
+    uint8-valued with offset 0, int8-valued with offset 128 and a signed
+    LUT; lut: (256,256) integer table."""
+    flat = _table(lut, a.device)
+    a_idx = (a.long() + offset) * 256
+    b_idx = b.long() + offset
+    return _gather_blocks(a_idx, b_idx, flat)
+
+
+def lut_matmul_ref(a: torch.Tensor, b: torch.Tensor, lut) -> torch.Tensor:
+    """S[m,n] = sum_k LUT[a[m,k], b[k,n]] (int32), the plain version of
+    ``csrc/lut_matmul.cu``: offset-free (signed operands arrive
+    pre-shifted by +128), as the Pallas function."""
+    return approx_matmul_ref(a, b, lut, 0)
+
+
+def residual_corrected_matmul_ref(a: torch.Tensor, b: torch.Tensor, F, G,
+                                  offset: int = 0,
+                                  budget: int = 1 << 24) -> torch.Tensor:
+    """Exact matmul + rank-r error model (float32 out), the plain version
+    of ``csrc/residual_matmul.cu``:
+
+        S = float(A @ B) + sum_k sum_r F[a[m,k]+off, r] * G[r, b[k,n]+off]
+
+    F: (256, r), G: (r, 256) float32 (core.lut.error_factors, or
+    signed_error_factors with offset 128 for int8 operands).  The
+    correction is summed over K slices whose gathered factors hold at
+    most ``budget`` entries."""
+    exact = exact_matmul_ref(a, b).float()
+    F = torch.as_tensor(F).to(device=a.device, dtype=torch.float32)
+    G = torch.as_tensor(G).to(device=a.device, dtype=torch.float32)
+    M, K = a.shape
+    N = b.shape[1]
+    r = F.shape[1]
+    corr = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+    kb = max(1, min(K, budget // max(r * (M + N), 1)))
+    for k0 in range(0, K, kb):
+        Fa = F[a[:, k0:k0 + kb].long() + offset]            # (M, kb, r)
+        Gb = G[:, b[k0:k0 + kb].long() + offset]            # (r, kb, N)
+        corr = corr + torch.einsum("mkr,rkn->mn", Fa, Gb)
+    return exact + corr
 
 
 def quantize_static(x: torch.Tensor, sx, zx, asym: bool) -> torch.Tensor:

@@ -10,16 +10,19 @@ onto an active calibration observer the way the reference's pscan does.
 Only the dense pattern ``("attn",)`` is ported.
 
 API:
-  init_params(generator, cfg, device)            -> params
+  init_params(generator, cfg, device)              -> params
+  forward_train(params, batch, cfg, qcfg, remat)   -> (loss, metrics)
   forward_decode(params, state, tokens, cfg, qcfg) -> (logits, state)
-  init_decode_state(cfg, batch, s_max, device)   -> state
+  init_decode_state(cfg, batch, s_max, device)     -> state
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..configs import ArchConfig
 from ..device import resolve
@@ -122,6 +125,66 @@ def _decoder_stack(params, x, positions, cfg: ArchConfig,
             sc = {"k": sc["k"], "v": sc["v"], "idx": sc["idx"] + x.shape[1]}
         new_caches.append(sc)
     return x, new_caches
+
+
+def _unstack(tree, n: int):
+    """The n per-layer views of a stacked params tree, as a list of
+    trees.  torch.unbind gives every view's gradient back to the stacked
+    (n_units, ...) leaf in one stack, not one leaf-sized select gradient
+    per layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _train_stack(params, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
+                 remat: bool):
+    """The decoder layers of a training forward.  With ``remat`` each
+    layer runs inside torch.utils.checkpoint (non-reentrant), so its
+    activations are recomputed in the backward pass, as jax.checkpoint
+    does under the reference's remat_scope; the dynamic quantizers are
+    deterministic, so the recompute reproduces every quantized
+    operand."""
+    _check_dense(cfg)
+
+    def layer(lp, h):
+        return _block_apply(lp, h, positions, cfg, qcfg)[0]
+
+    for slot, _ in enumerate(cfg.pattern):
+        for lp in _unstack(params["units"][slot], cfg.n_units):
+            if remat:
+                # the layer draws no random numbers: no RNG state to keep
+                x = torch_checkpoint.checkpoint(
+                    functools.partial(layer, lp), x, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x = layer(lp, x)
+    return x
+
+
+def forward_train(params, batch, cfg: ArchConfig, qcfg: QuantConfig,
+                  remat: bool = False):
+    """batch: tokens (B, S), labels (B, S), optional mask (B, S).
+    Returns (loss, metrics) with metrics loss, aux (0 for the dense
+    family) and ppl_proxy = exp(min(loss, 20))."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = layers.embed(params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    x = _train_stack(params, x, positions, cfg, qcfg, remat)
+    x = layers.rmsnorm(x, params["final_norm"])
+    logits = layers.unembed(params["embed"], x)
+    logp = torch.log_softmax(logits.float(), -1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    loss = loss + 0.01 * aux
+    return loss, {"loss": loss, "aux": aux,
+                  "ppl_proxy": torch.exp(torch.clamp_max(loss, 20.0))}
 
 
 def forward_decode(params, state, tokens, cfg: ArchConfig,

@@ -317,11 +317,10 @@ def qdot(x: torch.Tensor, w, cfg: QuantConfig) -> torch.Tensor:
         y = _qdot_asym(x, w, cfg, pre)
     if cfg.inference:
         return y
-    # The reference's straight-through form y_ste + stop_gradient(y -
-    # y_ste), kept for its float rounding; its gradient comes with the
-    # training port.
+    # straight-through estimator: the gradient flows as if y == x @ w
+    # (the exact float product); (y - y_ste) is a constant of it
     y_ste = torch.matmul(x, w)
-    return y_ste + (y - y_ste)
+    return y_ste + (y - y_ste).detach()
 
 
 def _act_axis(x, cfg: QuantConfig):
@@ -360,7 +359,7 @@ def _qdot_asym(x, w, cfg, pre=None):
         qw, sw, zw = quantize_uint8(w, _weight_axis(w))
         colsum = None
     K = x.shape[-1]
-    prod = ops.approx_matmul(qx, qw, cfg.design, cfg.backend)
+    prod = ops.approx_matmul(qx, qw, cfg.design, cfg.backend, cfg.rank)
     if cfg.compensate:
         mu_r, mu_c, mu = _site_comp_tables(pre, cfg, False, x.device)
         comp = (mu_r[qx.long()].sum(-1, keepdim=True)
@@ -387,7 +386,8 @@ def _qdot_signed(x, w, cfg, pre=None):
     else:
         qw, sw = quantize_int8(w, _weight_axis(w))
     K = x.shape[-1]
-    prod = ops.approx_matmul(qx, qw, cfg.design, cfg.backend, signed=True)
+    prod = ops.approx_matmul(qx, qw, cfg.design, cfg.backend, cfg.rank,
+                             signed=True)
     if cfg.compensate:
         mu_r, mu_c, mu = _site_comp_tables(pre, cfg, True, x.device)
         comp = (mu_r[qx.long() + 128].sum(-1, keepdim=True)

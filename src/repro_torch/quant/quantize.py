@@ -28,10 +28,20 @@ class QuantConfig:
     """How the approximate multiplier is applied inside matmuls.
 
     design:  'exact' | 'design1' | 'design2' | ... (core.multipliers)
-    backend: 'delta' (the delta kernel), 'fused' (one kernel does static
-             activation quantization + the delta product + the dequant
-             epilogue; needs prequantized weights with calibrated static
-             activation scales, else it degrades to 'delta'), 'exact'
+    backend: every name the reference accepts (kernels.ops.approx_matmul
+             says which kernel each launches on the card):
+             'xla' / 'pallas_legacy' (the product-LUT gather sum, the
+             lut_matmul kernel), 'residual' / 'residual_xla' (exact
+             product + rank-``rank`` error correction, the
+             residual_matmul kernel; approximate, not bit-exact),
+             'pallas' / 'delta' / 'delta_xla' (exact product + delta
+             gather, the delta_matmul kernel), 'fused' (one kernel does
+             static activation quantization + the delta product + the
+             dequant epilogue; needs prequantized weights with
+             calibrated static activation scales, else it degrades to
+             'delta'), 'exact'.  The port has no XLA: a name that says
+             'xla' in the reference means the same function here.
+    rank:    correction rank of the 'residual' backends
     compensate: mean-field bias compensation (subtract the separable
         conditional means mu_r[a] + mu_c[b] - mu of the error table).
     mode: 'asym_u8' (unsigned multiplier + zero-point decomposition) or
@@ -40,11 +50,14 @@ class QuantConfig:
     and a quantized unembed are not ported yet.
     act_per_pos: per-position dynamic activation quantization (set by
         train.make_prefill_step; ignored where static scales exist).
-    inference: pure inference (serve sets it).  The port has no STE
-        branch yet, so this changes nothing; kept for parity.
+    inference: pure inference (serve sets it): qdot skips the
+        straight-through branch y_ste + (y - y_ste).detach(), which
+        changes the forward value by float reassociation only.  Leave it
+        False wherever gradients flow.
     """
     design: str = "design2"
     backend: str = "delta"
+    rank: int = 32
     compensate: bool = True
     mode: str = "asym_u8"
     act_per_pos: bool = False
@@ -80,8 +93,10 @@ def _amax(x, dim=None, keepdim=False):
 
 
 def _minmax_scale(x, axis=None, eps=1e-8):
-    lo = _reduce(_amin, x, axis)
-    hi = _reduce(_amax, x, axis)
+    # the range is a constant of the gradient (the reference's
+    # stop_gradient): no gradient flows through the scales
+    lo = _reduce(_amin, x.detach(), axis)
+    hi = _reduce(_amax, x.detach(), axis)
     scale = torch.clamp_min(true_div(hi - lo, 255.0), eps)
     zp = torch.clamp(torch.round(-lo / scale), 0, 255)
     return scale, zp
@@ -97,7 +112,7 @@ def quantize_uint8(x, axis=None):
 def quantize_int8(x, axis=None, eps=1e-8):
     """Symmetric signed quantization: q in [-128,127] (int32), zero point
     0.  Returns (q, scale) with x ~= q * scale."""
-    amax = _reduce(_amax, torch.abs(x), axis)
+    amax = _reduce(_amax, torch.abs(x.detach()), axis)
     scale = torch.clamp_min(true_div(amax, 127.0), eps)
     q = torch.clamp(torch.round(x / scale), -128, 127)
     return q.to(torch.int32), scale

@@ -1,3 +1,4 @@
-"""Serving steps (the training half of the reference's train package is
-not ported yet)."""
-from .step import make_prefill_step, make_serve_step  # noqa: F401
+"""Train and serving steps, the optimizer and checkpointing."""
+from .optimizer import OptConfig, OptState  # noqa: F401
+from .step import (make_loss_fn, make_prefill_step,  # noqa: F401
+                   make_serve_step, make_train_step)

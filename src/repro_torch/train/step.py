@@ -1,4 +1,6 @@
-"""Serving steps: one batched decode step and the full-sequence prefill."""
+"""Train and serving step factories: the QAT train step (microbatched
+gradient accumulation, remat, int8 gradient compression with error
+feedback), one batched decode step and the full-sequence prefill."""
 from __future__ import annotations
 
 import dataclasses
@@ -6,8 +8,70 @@ import dataclasses
 import torch
 
 from ..configs import ArchConfig
+from ..device import true_div
 from ..models import transformer as T
 from ..quant import QuantConfig
+from . import optimizer as opt_mod
+from .optimizer import OptConfig, tree_leaves, tree_map, tree_unflatten
+
+
+def make_loss_fn(cfg: ArchConfig, qcfg: QuantConfig, remat: bool = False):
+    """(params, batch) -> (loss, metrics): forward_train, with every
+    decoder layer recomputed in the backward pass when ``remat``."""
+    def loss_fn(params, batch):
+        return T.forward_train(params, batch, cfg, qcfg, remat=remat)
+    return loss_fn
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """(loss, metrics, grads) with grads shaped like ``params``: the
+    counterpart of jax.value_and_grad(loss_fn, has_aux=True)."""
+    with torch.enable_grad():
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, metrics = loss_fn(live, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_unflatten(params, grads)
+
+
+def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, ocfg: OptConfig,
+                    microbatches: int = 1, remat: bool = True):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    With ``microbatches`` > 1 the batch is split along its first axis and
+    the gradients summed over the pieces in order, then divided by the
+    count (the reference's lax.scan, as a loop).  The optimizer updates
+    the params and its state in place (optimizer.apply)."""
+    loss_fn = make_loss_fn(cfg, qcfg, remat)
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
+        else:
+            def split(x):
+                return x.reshape(microbatches, x.shape[0] // microbatches,
+                                 *x.shape[1:])
+            mbs = {k: split(v) for k, v in batch.items()}
+            grads = tree_map(torch.zeros_like, params)
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=tree_leaves(params)[0].device)
+            for i in range(microbatches):
+                loss_i, _, g = _value_and_grad(
+                    loss_fn, params, {k: v[i] for k, v in mbs.items()})
+                for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
+                    acc.add_(gi)
+                loss_sum = loss_sum + loss_i
+            grads = tree_map(lambda g: true_div(g, float(microbatches)),
+                             grads)
+            loss = true_div(loss_sum, float(microbatches))
+            metrics = {"loss": loss}
+        # before the optimizer, which updates the grads in place
+        grad_norm = opt_mod.global_norm(grads)
+        params, opt_state = opt_mod.apply(params, grads, opt_state, ocfg)
+        metrics = dict(metrics, loss=loss, grad_norm=grad_norm)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ArchConfig, qcfg: QuantConfig):

@@ -4,7 +4,7 @@ card (marked ``gpu``; each test skips without one).  Run there with
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Shapes are small and ragged here; chip_smoke.py repeats the checks at the
-main path's full-width shapes.  Tolerances are those of
+serving and training paths' full-width shapes.  Tolerances are those of
 repro_torch.kernels.check.
 """
 import pytest
@@ -114,3 +114,88 @@ def test_smoke_serve_matches_cpu_launch_by_launch(cuda, mode):
     with check.CpuShadow() as sh:
         serve.run(serve.build_parser().parse_args(argv))
     assert all(st["calls"] > 0 for st in sh.stats.values()), sh.stats
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("design", ["design2", "exact"])
+@pytest.mark.parametrize("shape", [(4, 2048, 1024), (1, 1, 1), (5, 77, 131),
+                                   (77, 131, 45), (130, 300, 520)])
+def test_lut_kernel_matches_plain(cuda, signed, design, shape):
+    check.check_lut(check.lut_case(*shape, signed, sum(shape), cuda,
+                                   design=design))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("design", ["design2", "exact"])
+def test_lut_kernel_exhaustive_pairs(cuda, signed, design):
+    """K=1 over every operand pair: the kernel's output is the gate-level
+    product table."""
+    vals = torch.arange(256, dtype=torch.int32)
+    case = check.lut_case(1, 1, 1, signed, 0, cuda, design=design)
+    case = dict(case, a=vals[:, None].contiguous().to(cuda),
+                b=vals[None, :].to(torch.uint8).contiguous().to(cuda))
+    check.check_lut(case)
+    got = ops.lut_matmul(**case).cpu().numpy()
+    table = (ops.get_signed_lut if signed else ops.get_lut)(design)
+    assert (got == table).all()
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("rank", [4, 16, 32, 256])
+@pytest.mark.parametrize("shape", [(64, 256, 128), (5, 77, 131),
+                                   (77, 131, 45)])
+def test_residual_kernel_matches_plain(cuda, signed, rank, shape):
+    check.check_residual(check.residual_case(*shape, signed, rank,
+                                             sum(shape), cuda))
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    case = check.lut_case(4, 64, 32, False, 0, cuda)
+    bad = torch.zeros((256, 256), dtype=torch.int32)
+    bad[0, 0], bad[1, 1] = -1, 40000
+    with pytest.raises(ValueError, match="neither uint16 nor int16"):
+        ops.narrow_lut(bad.to(cuda))
+    with pytest.raises(ValueError, match="must be int16"):
+        ops.lut_matmul(case["a"], case["b"], bad.to(cuda), True)
+    with pytest.raises(ValueError, match="uint8"):
+        ops.lut_matmul(case["a"], case["b"].to(torch.int32), case["lut"],
+                       case["unsigned"])
+    r = check.residual_case(4, 64, 32, True, 8, 0, cuda)
+    with pytest.raises(ValueError, match="int8 with offset 128"):
+        ops.residual_matmul(r["a"], r["b"].to(torch.uint8), r["F"], r["G"],
+                            offset=128)
+    with pytest.raises(ValueError, match="factors"):
+        ops.residual_matmul(r["a"], r["b"], r["F"][:, :4], r["G"],
+                            offset=128)
+
+
+@pytest.mark.parametrize("backend,mode", [("xla", "asym_u8"),
+                                          ("residual", "sym_i8")])
+def test_smoke_train_step_matches_cpu_launch_by_launch(cuda, backend, mode):
+    """One smoke train step on the card, remat on, two microbatches:
+    every lut_matmul / residual_matmul launch equals its plain version
+    run on the CPU from the same inputs (check.CpuShadow), and the launch
+    count is the path's: 7 projections x layers x (forward + recompute)
+    per microbatch."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    cfg = configs.get_smoke("qwen3-1.7b")
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           device=cuda)
+    ocfg = OptConfig(compress_grads=True)
+    step = make_train_step(cfg, QuantConfig(backend=backend, mode=mode),
+                           ocfg, microbatches=2, remat=True)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, 17), generator=g)
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    name = "lut_matmul" if backend == "xla" else "residual_matmul"
+    ops.reset_launches()
+    with check.CpuShadow(check.CpuShadow.TRAIN) as sh:
+        _, _, metrics = step(params, opt_mod.init(params, ocfg), batch)
+    assert sh.stats[name]["calls"] == 7 * cfg.n_layers * 2 * 2
+    assert ops.LAUNCHES[name] == sh.stats[name]["calls"]
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(
+        metrics["grad_norm"])

@@ -1,0 +1,38 @@
+"""The port's import rule: every module under src/repro_torch imports
+torch and numpy only, never jax and nothing of the JAX package (repro).
+Checked in a fresh interpreter, so modules the test process already
+holds do not hide an import."""
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import repro_torch
+
+SRC = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
+
+
+def _port_modules():
+    names = ["repro_torch"]
+    for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(m.name)
+    return sorted(names)
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    mods = _port_modules()
+    assert "repro_torch.launch.train" in mods
+    assert "repro_torch.train.optimizer" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
+        "             or n.startswith('jax.') or n == 'jaxlib'\n"
+        "             or n == 'repro' or n.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

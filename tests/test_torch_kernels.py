@@ -25,6 +25,7 @@ from repro.kernels import ref as rref
 from repro.quant import linear as rlin
 from repro_torch.core import lut as tlut
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels.check import check_rows
 
 MODES = [("asym_u8", False), ("sym_i8", True)]
@@ -199,3 +200,160 @@ def test_approx_matmul_backends_match_reference(signed, backend):
                               backend, 32, signed)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# lut_matmul and residual_matmul (the 'xla' / 'pallas_legacy' and
+# 'residual' / 'residual_xla' backends), against the reference's
+# approx_matmul_ref and residual_corrected_matmul_ref.
+#
+#   * product-LUT gather (approx_matmul_ref, lut_matmul_ref): exact, and
+#     equal to the gate-level product table on the 65,536-pair sweep.
+#   * residual_corrected_matmul_ref: the exact part is an integer product
+#     converted once (exact); the rank-r correction is a float32 sum in
+#     another order than XLA's einsum, held to 1e-6 * max|out| (measured
+#     9.9e-8).  At full rank its output rounds to the LUT product, as the
+#     reference's does (tests/test_signed.py).
+# ---------------------------------------------------------------------------
+
+RESID_REF_TOL = 1e-6
+
+
+@pytest.mark.parametrize("mode,signed", MODES)
+@pytest.mark.parametrize("design", ["design2", "exact"])
+def test_lut_matmul_exhaustive_pairs(mode, signed, design):
+    """K=1 over every operand pair: the output is the product table."""
+    vals = np.arange(-128, 128) if signed else np.arange(256)
+    a = vals.astype(np.int32)[:, None]
+    b = vals.astype(np.int32)[None, :]
+    off = 128 if signed else 0
+    table = (ops.get_signed_lut if signed else ops.get_lut)(design)
+    before = dict(ops.LAUNCHES)
+    got = ops.lut_matmul(_t(a + off), _t(b + off), *ops.narrow_lut(table))
+    assert ops.LAUNCHES == before
+    from repro.kernels import ops as rops
+    r_table = (rops.get_signed_lut if signed else rops.get_lut)(design)
+    want = np.asarray(rref.approx_matmul_ref(jnp.asarray(a), jnp.asarray(b),
+                                             r_table, offset=off))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), r_table)
+    # the 16-bit narrowing the kernel takes, widened back, is the table
+    narrow, unsigned = ops.narrow_lut(table)
+    assert unsigned == (not signed)
+    np.testing.assert_array_equal(ops._widen(narrow, unsigned).numpy(),
+                                  table)
+
+
+@pytest.mark.parametrize("mode,signed", MODES)
+@pytest.mark.parametrize("shape", [(5, 77, 131), (3, 1000, 17), (77, 131, 45)])
+def test_approx_matmul_ref_ragged(mode, signed, shape):
+    M, K, N = shape
+    rng = np.random.default_rng(M + K * N)
+    lo, hi = (-128, 128) if signed else (0, 256)
+    a = rng.integers(lo, hi, (M, K)).astype(np.int32)
+    b = rng.integers(lo, hi, (K, N)).astype(np.int32)
+    off = 128 if signed else 0
+    lut = rlut.build_signed_lut("design2") if signed \
+        else rlut.build_lut("design2")
+    want = np.asarray(rref.approx_matmul_ref(jnp.asarray(a), jnp.asarray(b),
+                                             lut, offset=off))
+    got = tref.approx_matmul_ref(_t(a), _t(b), _t(lut), off)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # small blocks: the K slicing is exact
+    got = tref._gather_blocks((_t(a).long() + off) * 256, _t(b).long() + off,
+                              _t(lut).reshape(-1), budget=M * N * 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("rank", [4, 16, 32, None])
+def test_error_factors_equal_reference(signed, rank):
+    fn_r = rlut.signed_error_factors if signed else rlut.error_factors
+    fn_t = tlut.signed_error_factors if signed else tlut.error_factors
+    Fr, Gr, res_r = fn_r("design2", rank)
+    Ft, Gt, res_t = fn_t("design2", rank)
+    np.testing.assert_array_equal(Ft, Fr)
+    np.testing.assert_array_equal(Gt, Gr)
+    assert res_t == res_r
+
+
+@pytest.mark.parametrize("mode,signed", MODES)
+@pytest.mark.parametrize("rank", [4, 16, 32, 256])
+@pytest.mark.parametrize("shape", [(37, 300, 45), (5, 77, 131)])
+def test_residual_plain_matches_reference(mode, signed, rank, shape):
+    M, K, N = shape
+    rng = np.random.default_rng(rank + M)
+    lo, hi = (-128, 128) if signed else (0, 256)
+    a = rng.integers(lo, hi, (M, K)).astype(np.int32)
+    b = rng.integers(lo, hi, (K, N)).astype(np.int32)
+    off = 128 if signed else 0
+    F, G = ops.get_factors("design2", rank, signed)
+    want = np.asarray(rref.residual_corrected_matmul_ref(
+        jnp.asarray(a), jnp.asarray(b), F, G, offset=off))
+    got = ops.residual_matmul(_t(a), _t(b), _t(F), _t(G), off).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=RESID_REF_TOL * np.abs(want).max())
+    if rank == 256:      # full rank: the correction is the whole error
+        lut = rlut.build_signed_lut("design2") if signed \
+            else rlut.build_lut("design2")
+        exact = lut[(a + off)[:, :, None], (b + off)[None]].sum(1)
+        np.testing.assert_array_equal(np.round(got), exact)
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("backend", ["xla", "pallas_legacy", "residual",
+                                     "residual_xla", "pallas", "delta",
+                                     "delta_xla", "fused", "exact"])
+def test_approx_matmul_every_backend_matches_reference(signed, backend):
+    """ops.approx_matmul for every backend name of the reference against
+    the reference's ops.approx_matmul.  The reference's 'pallas_legacy',
+    'residual' and 'pallas' run Pallas kernels that do not build on the
+    installed jax, so those names are held against their XLA twins
+    ('xla', 'residual_xla', 'delta_xla'), which compute the same
+    function.  Integer backends exact; residual within RESID_REF_TOL."""
+    from repro.kernels import ops as rops
+    twin = {"pallas_legacy": "xla", "residual": "residual_xla",
+            "pallas": "delta_xla"}.get(backend, backend)
+    rng = np.random.default_rng(17)
+    lo, hi = (-128, 128) if signed else (0, 256)
+    a = rng.integers(lo, hi, (2, 3, 40)).astype(np.int32)
+    b = rng.integers(lo, hi, (40, 24)).astype(np.int32)
+    got = ops.approx_matmul(_t(a), _t(b), "design2", backend, 16,
+                            signed=signed)
+    want = np.asarray(rops.approx_matmul(jnp.asarray(a), jnp.asarray(b),
+                                         "design2", twin, 16, signed))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if backend.startswith("residual"):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=RESID_REF_TOL * np.abs(want).max())
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_approx_matmul_straight_through_gradient():
+    """ApproxMatmul's backward is the reference's _approx_matmul_bwd:
+    float-valued operands get g @ b.T and a.T @ g (float32 matmuls summed
+    in torch's order, not XLA's: rtol 1e-5, measured 1.6e-6)."""
+    import jax
+    from repro.kernels import ops as rops
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 256, (2, 3, 8)).astype(np.float32)
+    b = rng.integers(0, 256, (8, 5)).astype(np.float32)
+    g = rng.normal(size=(2, 3, 5)).astype(np.float32)
+    at, bt = _t(a).requires_grad_(), _t(b).requires_grad_()
+    out = ops.approx_matmul(at, bt, "design2", "xla")
+    da, db = torch.autograd.grad(out, (at, bt), _t(g))
+    _, vjp = jax.vjp(lambda x, y: rops.approx_matmul(x, y, "design2", "xla"),
+                     jnp.asarray(a), jnp.asarray(b))
+    ra, rb = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(da.numpy(), np.asarray(ra), rtol=1e-5)
+    np.testing.assert_allclose(db.numpy(), np.asarray(rb), rtol=1e-5)
+    # integer operands carry no gradient
+    assert not ops.approx_matmul(_t(a).int(), _t(b).int()).requires_grad
+
+
+def test_narrow_lut_refuses_a_table_that_fits_16_bits_neither_way():
+    bad = np.zeros((256, 256), np.int32)
+    bad[0, 0], bad[1, 1] = -1, 40000
+    with pytest.raises(ValueError, match="neither uint16 nor int16"):
+        ops.narrow_lut(bad)
