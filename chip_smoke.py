@@ -32,7 +32,9 @@ error and carries on:
                held against its plain version on the CPU; the free-running
                loss and gradient gaps reported
   8. timing    each kernel and its plain version with CUDA events at the
-               paths' shapes
+               paths' shapes: ``ms`` times back-to-back wrapper calls (what
+               a host-driven path pays), ``device_ms`` the same calls
+               queued behind a spin on the card (the kernels' device time)
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -95,21 +97,42 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_time(fn, iters: int, warmup: int = 2) -> float:
+def cuda_time(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
     """Mean ms per call of fn() on the card: CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls.
+
+    ``queued`` (a wrapper's ``device_ms``): the calls are queued behind a
+    spin on the card (torch.cuda._sleep) at least twice as long as the
+    host took to issue them, so the events time the card's work and not
+    the host's launch rate; it is checked that the host had issued every
+    call before the first one started."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    spin = 0
+    if queued:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        spin = int(2 * (time.perf_counter() - t0) * 2e9) + 10**6  # <= 2 GHz
+    for _ in range(4):
+        torch.cuda.synchronize()
+        if spin:
+            torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not spin or not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        spin *= 4
+    raise AssertionError("cuda_time: the card started before the host had "
+                         "queued the timed calls")
 
 
 # ---------------------------------------------------------------------------
@@ -133,17 +156,11 @@ def lut_bound(M, K, N):
 
 
 def residual_bound(M, K, N, r):
-    """The function's own bound: A@B + F[a]G[b] summed over k is
-    sum_k T[a, b] over one precomputed (256, 256) float32 table
-    T = a*b + F G, lut_matmul's structure, counted by its convention."""
+    """A@B + F[a]G[b] summed over k is sum_k C[a, b] beside the exact
+    product, over one (256, 256) float32 table C = F G: lut_matmul's
+    structure, counted by its convention (F and G read once)."""
     nbytes = M * K * 4 + K * N + 2 * 256 * r * 4 + M * N * 4
     return nbytes / HBM_BPS, 2 * M * K * N / INT8_OPS
-
-
-def residual_factored_ms(M, K, N, r):
-    """The bound of the kernel's own algorithm (exact product and rank-r
-    correction as 2MKN(1+r) float32 flops), in ms."""
-    return 2 * M * K * N * (1 + r) / F32_FLOPS * 1e3
 
 
 def delta_bound(M, K, N):
@@ -171,16 +188,20 @@ def attention_bound(Bq, H, Kv, hd, pos):
 # ---------------------------------------------------------------------------
 
 def check_kernels(cfg, dev):
-    from repro_torch.kernels import check
+    import torch
+    from repro_torch.kernels import check, ops
     unmerged, merged = projection_shapes(cfg)
     errs = {"delta_matmul": 0.0, "fused_qdot": 0.0, "decode_attention": 0.0}
     for signed in (False, True):
         mode = "sym_i8" if signed else "asym_u8"
         for i, (name, K, N) in enumerate(unmerged + [("ragged", 77, 131)]):
             M = 5 if name == "ragged" else B
-            check.check_delta(check.delta_case(M, K, N, signed, i, dev))
+            case = check.delta_case(M, K, N, signed, i, dev)
+            check.check_delta(case)
+            assert torch.equal(ops.delta_matmul(**case),
+                               ops.delta_matmul(**case)), "not repeatable"
             log(f"[kernels] delta_matmul {mode} {name} M={M} K={K} N={N}: "
-                f"bit-exact")
+                f"bit-exact, two launches bit-equal")
         for i, (name, K, N) in enumerate(merged + [("ragged", 77, 131)]):
             for M in ((3, 70) if name == "ragged" else (B, B * P)):
                 r = check.check_fused(check.fused_case(M, K, N, signed,
@@ -565,12 +586,12 @@ def time_kernels(cfg, dev, launches, errs):
     unmerged, merged = projection_shapes(cfg)
     rows, summary = [], {}
 
-    def row(kernel, shape, ms, plain_ms, bounds, **extra):
+    def row(kernel, shape, fn, iters, plain_ms, bounds):
         b_bytes, b_ops = bounds
-        r = {"kernel": kernel, "shape": shape, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": max(b_bytes, b_ops) * 1e3,
-             "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-             **extra}
+        r = {"kernel": kernel, "shape": shape, "ms": cuda_time(fn, iters),
+             "device_ms": cuda_time(fn, iters, queued=True),
+             "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops) * 1e3,
+             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
         rows.append(r)
         log("[timing] " + json.dumps(r))
         return r
@@ -578,14 +599,14 @@ def time_kernels(cfg, dev, launches, errs):
     def mean(rs, weights):
         tot = sum(weights)
         return {k: sum(r[k] * w for r, w in zip(rs, weights)) / tot
-                for k in ("ms", "plain_ms", "bound_ms")}
+                for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
 
     # delta_matmul: the 7 calibration projections of a layer, M = B, asym
     rs = []
     for i, (name, K, N) in enumerate(unmerged):
         c = check.delta_case(B, K, N, False, i, dev)
         rs.append(row("delta_matmul", f"{name} M={B} K={K} N={N}",
-                      cuda_time(lambda: ops.delta_matmul(**c), 50),
+                      lambda: ops.delta_matmul(**c), 50,
                       cuda_time(lambda: ref.delta_matmul_ref(**c), 5),
                       delta_bound(B, K, N)))
     summary["delta_matmul"] = (mean(rs, [1] * len(rs)), rs)
@@ -598,7 +619,7 @@ def time_kernels(cfg, dev, launches, errs):
             c = check.fused_case(M, K, N, False, 100 + i, dev)
             it = 50 if M == B else 10
             rs.append(row("fused_qdot", f"{name} M={M} K={K} N={N}",
-                          cuda_time(lambda: ops.fused_qdot_packed(**c), it),
+                          lambda: ops.fused_qdot_packed(**c), it,
                           cuda_time(lambda: ref.fused_qdot_ref(
                               c["x"], c["qw"], c["dlut"], c["scal"],
                               c["ntab"], c["comp_r"], 0, True, True), 3),
@@ -612,11 +633,12 @@ def time_kernels(cfg, dev, launches, errs):
                              dev, pos=[pos] * B)
     r = row("decode_attention", f"B={B} H={cfg.n_heads} Kv={cfg.n_kv} "
             f"hd={cfg.hd} S={P + G} pos={pos}",
-            cuda_time(lambda: ops.decode_attention_step(**c), 200),
+            lambda: ops.decode_attention_step(**c), 200,
             cuda_time(lambda: ref.decode_attention_step_ref(**c), 50),
             attention_bound(B, cfg.n_heads, cfg.n_kv, cfg.hd, pos))
     summary["decode_attention"] = (
-        {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}, [r])
+        {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        [r])
 
     # lut_matmul and residual_matmul: the training projections at
     # M = TB*TS, weighted by how many projections of a layer have each shape
@@ -630,20 +652,18 @@ def time_kernels(cfg, dev, launches, errs):
                 plain_c = dict(c, lut=ops._widen(c["lut"], c["unsigned"]))
                 del plain_c["unsigned"]
                 rs.append(row(kname, f"{name} M={M} K={K} N={N}",
-                              cuda_time(lambda: ops.lut_matmul(**c), 10),
+                              lambda: ops.lut_matmul(**c), 10,
                               cuda_time(lambda: ref.lut_matmul_ref(
                                   **plain_c), 2),
                               lut_bound(M, K, N)))
             else:
                 c = check.residual_case(M, K, N, signed, RANK, 500 + i, dev)
                 rs.append(row(kname, f"{name} M={M} K={K} N={N} r={RANK}",
-                              cuda_time(lambda: ops.residual_matmul(**c), 5),
+                              lambda: ops.residual_matmul(**c), 5,
                               cuda_time(lambda: ref.
                                         residual_corrected_matmul_ref(**c),
                                         2),
-                              residual_bound(M, K, N, RANK),
-                              factored_bound_ms=residual_factored_ms(
-                                  M, K, N, RANK)))
+                              residual_bound(M, K, N, RANK)))
             w.append(name.count("/") + 1)
         summary[kname] = (mean(rs, w), rs)
 
@@ -655,12 +675,14 @@ def time_kernels(cfg, dev, launches, errs):
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": m["ms"],
-            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
             "bound_by": max(set(by), key=by.count), "library_ms": None})
     log("[timing] library_ms is null: no single PyTorch call computes the "
         "approximate (delta-table) product, the fused quantize-product-"
         "dequant, the qk-norm/rope/bf16-row decode attention step, the "
-        "product-LUT gather sum or the gathered rank-r correction")
+        "product-LUT gather sum or the exact product plus the "
+        "correction-table gather sum")
     return kernels
 
 

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds).  The libraries go into
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so a changed source rebuilds and an unchanged one
-is reused.  All missing libraries are compiled in parallel, one ``nvcc``
-process each, at the first CUDA use of any kernel.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source rebuilds and an unchanged one is reused.  All missing libraries
+are compiled in parallel, one ``nvcc`` process each, at the first CUDA
+use of any kernel.
 """
 from __future__ import annotations
 
@@ -39,7 +40,8 @@ SIGNATURES = {
                           _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
     "lut_matmul": ("lut_matmul_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "residual_matmul": ("residual_matmul_launch",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P]),
 }
 
 _FUNCS: dict = {}     # name -> bound C function (this process)
@@ -57,6 +59,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

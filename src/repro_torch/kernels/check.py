@@ -17,9 +17,10 @@ Tolerances, and why:
                     the gate-level product table on the 65,536-pair sweep.
   residual_matmul   the exact part is an int32 sum converted once (exact
                     as the plain version's); the rank-r correction is a
-                    float32 sum over K*r products in another order than
-                    the plain version's matmul, held to RESID_TOL_REL *
-                    max|out|.
+                    float32 sum over K entries of the table C = F G, each
+                    entry rounded once from a float64 sum, where the
+                    plain version sums K*r float32 products in its
+                    matmul's order; held to RESID_TOL_REL * max|out|.
   decode_attention  the bf16 v row is exact.  The bf16 k row may land one
                     bf16 step away (2^-8 to 2^-7 of the value, ROW_RTOL)
                     where the kernel's and torch's rmsnorm/rope float math

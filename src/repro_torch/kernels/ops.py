@@ -3,13 +3,15 @@
 Five kernels, each written by hand in CUDA C++ for Hopper
 (``csrc/*.cu``) with its plain PyTorch version in ``ref``:
 
-  delta_matmul      exact integer product + delta-table gather
+  delta_matmul      exact integer product + delta-table gather (split-K
+                    over every SM for M <= 4)
   fused_qdot        static activation quantization + the delta product +
                     the dequant epilogue
   decode_attention  qk-norm + rope + bf16 row rounding + masked GQA
                     attention with an online softmax, one decode step
   lut_matmul        product-LUT gather sum (16-bit table in shared memory)
-  residual_matmul   exact product + rank-r error correction, float32
+  residual_matmul   exact product + rank-r error correction, float32, as
+                    a gather sum over the correction table C = F G
 
 The lowering follows the tensors' device: a CUDA tensor launches the
 kernel (or the wrapper raises on what the kernel does not take), a CPU
@@ -145,12 +147,21 @@ def _check_cuda(name: str, *tensors) -> None:
 
 
 def _check_table(name: str, dlut: torch.Tensor) -> None:
-    _check(tuple(dlut.shape) == (256, 256),
-           f"{name}: delta table must be (256, 256), got {tuple(dlut.shape)}")
-    _check(dlut.dtype == torch.int16,
-           f"{name}: the CUDA kernel takes an int16 delta table (128 KiB "
-           f"in shared memory); got {dlut.dtype} — design 'initial' needs "
-           f"int32 (256 KiB), which does not fit a block's shared memory")
+    # plain ifs here and in delta_matmul: a message is formatted only when
+    # a check fails (calibration makes ~26k calls a run, each a 10-40 µs
+    # kernel; formatting every message cost the host about 10 µs a call)
+    if dlut.shape != (256, 256):
+        raise ValueError(f"{name}: delta table must be (256, 256), got "
+                         f"{tuple(dlut.shape)}")
+    if dlut.dtype != torch.int16:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes an int16 delta table (128 KiB "
+            f"in shared memory); got {dlut.dtype} — design 'initial' needs "
+            f"int32 (256 KiB), which does not fit a block's shared memory")
+    if dlut.data_ptr() % 16:
+        raise ValueError(f"{name}: the delta table must be 16-byte aligned "
+                         f"(it is copied into shared memory in 16-byte "
+                         f"units)")
 
 
 def _raise_cuda(name: str, err: int) -> None:
@@ -179,12 +190,15 @@ def delta_matmul(a: torch.Tensor, b: torch.Tensor, dlut: torch.Tensor,
     if a.device.type != "cuda":
         raise _wrong_device("delta_matmul", a)
     name = "delta_matmul"
-    _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
-           f"{name}: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    _check(a.dtype == torch.int32, f"{name}: a must be int32, got {a.dtype}")
-    _check((b.dtype, offset) in ((torch.uint8, 0), (torch.int8, 128)),
-           f"{name}: b must be uint8 with offset 0 or int8 with offset "
-           f"128, got {b.dtype} with offset {offset}")
+    if not (a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0]):
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype != torch.int32:
+        raise ValueError(f"{name}: a must be int32, got {a.dtype}")
+    if (b.dtype, offset) not in ((torch.uint8, 0), (torch.int8, 128)):
+        raise ValueError(f"{name}: b must be uint8 with offset 0 or int8 "
+                         f"with offset 128, got {b.dtype} with offset "
+                         f"{offset}")
     _check_table(name, dlut)
     _check_cuda(name, a, b, dlut)
     M, K = a.shape
@@ -255,7 +269,9 @@ def residual_matmul(a: torch.Tensor, b: torch.Tensor, F: torch.Tensor,
 
     a: (M, K) int32; b: (K, N) uint8 (offset 0) or int8 (offset 128) on
     the card, any integer dtype on the CPU; F: (256, r), G: (r, 256)
-    float32 with 1 <= r <= 256.
+    float32 with 1 <= r <= 256.  The kernel first builds the (256, 256)
+    table C = F G (into a scratch allocated here), then sums
+    C[a+off, b+off] over k.
     """
     if a.device.type == "cpu":
         return ref.residual_corrected_matmul_ref(a, b, F, G, offset)
@@ -279,10 +295,11 @@ def residual_matmul(a: torch.Tensor, b: torch.Tensor, F: torch.Tensor,
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    table = torch.empty((256, 256), dtype=torch.float32, device=a.device)
     from ._build import kernel
     err = kernel(name)(a.data_ptr(), b.data_ptr(), F.data_ptr(),
-                       G.data_ptr(), out.data_ptr(), M, K, N, r, offset,
-                       int(b.dtype == torch.int8), _stream())
+                       G.data_ptr(), table.data_ptr(), out.data_ptr(), M, K,
+                       N, r, offset, int(b.dtype == torch.int8), _stream())
     _raise_cuda(name, err)
     LAUNCHES[name] += 1
     return out

@@ -70,16 +70,18 @@ def delta_matmul_ref(a: torch.Tensor, b: torch.Tensor, dlut,
 
 
 def _gather_blocks(a_idx, b_idx, flat, budget: int = 1 << 24):
-    """sum_k flat[a_idx[m,k] + b_idx[k,n]] (int32), K sliced so that no
-    gathered block holds more than ``budget`` entries (never the whole
-    (M,K,N) index surface).  Integer sums: the slicing is exact."""
+    """sum_k flat[a_idx[m,k] + b_idx[k,n]] (int32; float32 for a float
+    table), K sliced so that no gathered block holds more than ``budget``
+    entries (never the whole (M,K,N) index surface).  Integer sums: the
+    slicing is exact."""
     M, K = a_idx.shape
     N = b_idx.shape[1]
-    out = torch.zeros((M, N), dtype=torch.int32, device=a_idx.device)
+    dt = torch.float32 if flat.is_floating_point() else torch.int32
+    out = torch.zeros((M, N), dtype=dt, device=a_idx.device)
     kb = max(1, min(K, budget // max(M * N, 1)))
     for k0 in range(0, K, kb):
         idx = a_idx[:, k0:k0 + kb, None] + b_idx[None, k0:k0 + kb, :]
-        out += flat[idx].sum(1, dtype=torch.int32)
+        out += flat[idx].sum(1, dtype=dt)
     return out
 
 
@@ -127,6 +129,29 @@ def residual_corrected_matmul_ref(a: torch.Tensor, b: torch.Tensor, F, G,
         Gb = G[:, b[k0:k0 + kb].long() + offset]            # (r, kb, N)
         corr = corr + torch.einsum("mkr,rkn->mn", Fa, Gb)
     return exact + corr
+
+
+def residual_table_ref(F, G) -> torch.Tensor:
+    """The correction table C = F G (256, 256) that ``csrc/
+    residual_matmul.cu`` builds before its gather sum: a float64 product
+    of the float32 factors (each term exact), rounded once to float32."""
+    F = torch.as_tensor(F).to(torch.float64)
+    G = torch.as_tensor(G).to(device=F.device, dtype=torch.float64)
+    return torch.matmul(F, G).to(torch.float32)
+
+
+def residual_table_sum_ref(a: torch.Tensor, b: torch.Tensor, C,
+                           offset: int = 0) -> torch.Tensor:
+    """float(A @ B) + sum_k C[a[m,k]+off, b[k,n]+off] (float32): the
+    residual product in the CUDA kernel's form, a float32 gather sum over
+    one correction table C (residual_table_ref).  The tests hold it
+    against the reference's factored form; the kernel's plain version
+    stays residual_corrected_matmul_ref."""
+    flat = torch.as_tensor(C).to(device=a.device,
+                                 dtype=torch.float32).reshape(-1)
+    corr = _gather_blocks(((a.long() + offset) & 0xFF) * 256,
+                          (b.long() + offset) & 0xFF, flat)
+    return exact_matmul_ref(a, b).float() + corr
 
 
 def quantize_static(x: torch.Tensor, sx, zx, asym: bool) -> torch.Tensor:

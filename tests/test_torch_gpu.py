@@ -34,6 +34,31 @@ def test_delta_kernel_matches_plain(cuda, signed, shape):
 
 
 @pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 17])
+@pytest.mark.parametrize("K", [1, 31, 33, 6144])
+@pytest.mark.parametrize("N", [1, 131, 1024])
+def test_delta_kernel_split_k_is_bit_exact_and_repeatable(cuda, signed, M,
+                                                          K, N):
+    """M <= 4 takes the split-K schedule (64-deep k chunks spread over the
+    SMs, partial sums added atomically), M > 4 the tile schedule; K ragged
+    against the chunk and the 32-deep stage.  Bit-equal to the plain
+    version, and two launches bit-equal to each other.  Each launch gets
+    its output from torch.empty right after a block of the same size held
+    garbage, which the launcher must clear before the atomic adds."""
+    case = check.delta_case(M, K, N, signed, M * K + N, cuda)
+
+    def garbage():    # freed at once: the caching allocator reuses it
+        torch.full((M, N), -7, dtype=torch.int32, device=cuda)
+
+    garbage()
+    check.check_delta(case)
+    garbage()
+    first = ops.delta_matmul(**case)
+    garbage()
+    assert torch.equal(first, ops.delta_matmul(**case))
+
+
+@pytest.mark.parametrize("signed", MODES)
 def test_delta_kernel_exhaustive_pairs(cuda, signed):
     vals = torch.arange(-128, 128) if signed else torch.arange(256)
     a = vals.to(torch.int32)[:, None].contiguous().to(cuda)
@@ -147,6 +172,32 @@ def test_lut_kernel_exhaustive_pairs(cuda, signed, design):
 def test_residual_kernel_matches_plain(cuda, signed, rank, shape):
     check.check_residual(check.residual_case(*shape, signed, rank,
                                              sum(shape), cuda))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("rank", [1, 4, 32, 256])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 300, 131), (3, 1, 45),
+                                   (4, 2048, 1024), (17, 33, 131),
+                                   (130, 301, 520)])
+def test_residual_kernel_ragged_shapes_and_ranks(cuda, signed, rank, shape):
+    """The table-then-gather kernel at every rank it is used with, ragged
+    M/K/N (M = 1 and K = 1 included; M <= 4 takes the 4 x 512 tile)."""
+    check.check_residual(check.residual_case(*shape, signed, rank,
+                                             sum(shape) + rank, cuda))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("half", [0, 1])
+@pytest.mark.parametrize("M", [3, 40])
+def test_residual_kernel_operands_in_one_half_of_the_table(cuda, signed,
+                                                           half, M):
+    """a's table rows all in one half of C: one of the two sweeps gathers
+    nothing, and a CTA's resident half carries over between its tiles."""
+    case = check.residual_case(M, 300, 520, signed, 32, half + M, cuda)
+    off = case["offset"]
+    a = ((case["a"] + off) & 127) + 128 * half - off
+    assert bool(((((a + off) & 255) >> 7) == half).all())
+    check.check_residual(dict(case, a=a.to(torch.int32).contiguous()))
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):

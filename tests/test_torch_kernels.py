@@ -357,3 +357,60 @@ def test_narrow_lut_refuses_a_table_that_fits_16_bits_neither_way():
     bad[0, 0], bad[1, 1] = -1, 40000
     with pytest.raises(ValueError, match="neither uint16 nor int16"):
         ops.narrow_lut(bad)
+
+
+# ---------------------------------------------------------------------------
+# residual_matmul's kernel form: one correction table C = F G (256, 256),
+# float64 products rounded once to float32 (ref.residual_table_ref), and a
+# float32 gather sum of C[a+off, b+off] over k beside the exact product
+# (ref.residual_table_sum_ref).  Held against numpy's float64 product and
+# the reference's factored residual_corrected_matmul_ref within
+# RESID_TOL_REL * max|out| (measured <= 1.9e-7).
+# ---------------------------------------------------------------------------
+
+RESID_RANKS = [1, 4, 32, 256]
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("rank", RESID_RANKS)
+def test_residual_table_is_the_rounded_float64_product(signed, rank):
+    F, G = ops.get_factors("design2", rank, signed)
+    got = tref.residual_table_ref(_t(F), _t(G))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (256, 256)
+    want = F.astype(np.float64) @ G.astype(np.float64)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
+def _residual_operands(shape, signed, seed, a_range=None):
+    M, K, N = shape
+    rng = np.random.default_rng(seed)
+    lo, hi = (-128, 128) if signed else (0, 256)
+    a = rng.integers(*(a_range or (lo, hi)), (M, K)).astype(np.int32)
+    b = rng.integers(lo, hi, (K, N)).astype(np.int32)
+    return a, b
+
+
+@pytest.mark.parametrize("mode,signed", MODES)
+@pytest.mark.parametrize("rank", RESID_RANKS)
+@pytest.mark.parametrize("shape", [(37, 300, 45), (5, 77, 131), (1, 1, 7),
+                                   (3, 1000, 17)])
+@pytest.mark.parametrize("a_half", [None, 0, 1])
+def test_residual_table_sum_matches_reference(mode, signed, rank, shape,
+                                              a_half):
+    """a_half: a's table rows (a + off) & 255 all in one half of C (the
+    kernel holds C by halves of ia's high bit), or over both (None)."""
+    from repro_torch.kernels.check import RESID_TOL_REL
+    off = 128 if signed else 0
+    a_range = None if a_half is None else (128 * a_half - off,
+                                           128 * a_half + 128 - off)
+    a, b = _residual_operands(shape, signed, rank + shape[0], a_range)
+    if a_half is not None:
+        assert set(np.unique(((a + off) & 255) >> 7)) == {a_half}
+    F, G = ops.get_factors("design2", rank, signed)
+    want = np.asarray(rref.residual_corrected_matmul_ref(
+        jnp.asarray(a), jnp.asarray(b), F, G, offset=off))
+    C = tref.residual_table_ref(_t(F), _t(G))
+    got = tref.residual_table_sum_ref(_t(a), _t(b), C, off).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=RESID_TOL_REL * np.abs(want).max())
