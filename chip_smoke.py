@@ -11,7 +11,10 @@ error and carries on:
                csrc (one process per source, all at once); prints ptxas -v
   3. kernels   each kernel against its plain PyTorch version on the card,
                at the serving and training paths' full-width shapes and a
-               ragged shape
+               ragged shape: fused_qdot at M = 1..4 (split-K) and 256,
+               with and without compensation, two launches bit-equal;
+               lut_matmul pre-shifted, through the offset and on three
+               operand patterns
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
@@ -34,7 +37,12 @@ error and carries on:
   8. timing    each kernel and its plain version with CUDA events at the
                paths' shapes: ``ms`` times back-to-back wrapper calls (what
                a host-driven path pays), ``device_ms`` the same calls
-               queued behind a spin on the card (the kernels' device time)
+               queued behind a spin on the card (the kernels' device time);
+               for the two gather kernels also gathers/s and their share
+               of the load/store units' lane rate (SMs x 32 x the SM clock
+               nvidia-smi reads beside the timing), lut_matmul on three
+               operand patterns (uniform, bank-conflict-free, quantized
+               normal)
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -95,6 +103,15 @@ def nvidia_smi_line() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True, timeout=60)
     return r.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads now (MHz); read right after a
+    timing, beside it."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, check=True, timeout=60)
+    return float(r.stdout.strip().splitlines()[0])
 
 
 def cuda_time(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
@@ -202,15 +219,26 @@ def check_kernels(cfg, dev):
                                ops.delta_matmul(**case)), "not repeatable"
             log(f"[kernels] delta_matmul {mode} {name} M={M} K={K} N={N}: "
                 f"bit-exact, two launches bit-equal")
+        # decode (M = B and below: the split-K schedule) and prefill
+        # (M = B*P: the tile schedule), with and without compensation
         for i, (name, K, N) in enumerate(merged + [("ragged", 77, 131)]):
-            for M in ((3, 70) if name == "ragged" else (B, B * P)):
-                r = check.check_fused(check.fused_case(M, K, N, signed,
-                                                       100 + i, dev))
-                errs["fused_qdot"] = max(errs["fused_qdot"],
-                                         r["max_abs_err"])
-                log(f"[kernels] fused_qdot {mode} {name} M={M} K={K} N={N}: "
-                    f"qx, acc bit-exact; max |err| {r['max_abs_err']:.3e} "
-                    f"({r['max_rel_err']:.3e} of max |y|)")
+            for M in ((1, 2, 3, 70) if name == "ragged"
+                      else (1, 2, 3, B, B * P)):
+                for comp in (True, False):
+                    case = check.fused_case(M, K, N, signed, 100 + i, dev,
+                                            compensate=comp)
+                    r = check.check_fused(case)
+                    first = ops.fused_qdot_packed(**case, return_int=True)
+                    again = ops.fused_qdot_packed(**case, return_int=True)
+                    assert all(torch.equal(x, y) for x, y in
+                               zip(first, again)), "fused_qdot not repeatable"
+                    errs["fused_qdot"] = max(errs["fused_qdot"],
+                                             r["max_abs_err"])
+                    log(f"[kernels] fused_qdot {mode} {name} M={M} K={K} "
+                        f"N={N} compensate={comp}: qx, acc bit-exact; max "
+                        f"|err| {r['max_abs_err']:.3e} "
+                        f"({r['max_rel_err']:.3e} of max |y|); two launches "
+                        f"bit-equal")
     H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     cases = [("decode, per-slot pos", dict(B=B, S=P + G, pos=[64, 70, 75, 79])),
              ("decode, one pos", dict(B=B, S=P + G, per_slot=False)),
@@ -263,9 +291,20 @@ def check_train_kernels(cfg, dev, errs):
                 m = 77 if name == "ragged" else M
                 check.check_lut(check.lut_case(m, K, N, signed, 200 + i, dev,
                                                design=design))
+                # as the 'xla' backend passes them: int8 b, offset 128
+                check.check_lut(check.lut_case(m, K, N, signed, 250 + i, dev,
+                                               design=design, shifted=False))
                 log(f"[kernels] lut_matmul {mode} {design} {name} M={m} "
-                    f"K={K} N={N}: bit-exact (and the 65,536-pair sweep "
-                    f"equals the gate-level table)")
+                    f"K={K} N={N}: bit-exact, pre-shifted and through the "
+                    f"offset (and the 65,536-pair sweep equals the "
+                    f"gate-level table)")
+        for pattern in check.LUT_PATTERNS[1:]:   # uniform: above
+            for i, (name, K, N) in enumerate(train_kinds(cfg)):
+                check.check_lut(check.lut_case(M, K, N, signed, 260 + i, dev,
+                                               pattern=pattern,
+                                               shifted=False))
+                log(f"[kernels] lut_matmul {mode} {pattern} operands {name} "
+                    f"M={M} K={K} N={N}: bit-exact")
         for rank in (4, RANK, 256):
             for i, (name, K, N) in enumerate(shapes):
                 if rank == 256 and name not in ("ragged", "wk/wv"):
@@ -585,21 +624,36 @@ def time_kernels(cfg, dev, launches, errs):
     from repro_torch.kernels import check, ops, ref
     unmerged, merged = projection_shapes(cfg)
     rows, summary = [], {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def row(kernel, shape, fn, iters, plain_ms, bounds):
+    def row(kernel, shape, fn, iters, plain_ms, bounds, gathers=None,
+            b=None, offset=0):
+        """One timing row.  ``gathers`` (the gather kernels: M*K*N table
+        reads a call) adds the gather rate over device_ms and its share of
+        the load/store units' lane rate, SMs x 32 lanes x the SM clock
+        read right after the timing, and the mean wavefronts a warp's
+        gather costs on the weights ``b`` (check.gather_wavefronts)."""
         b_bytes, b_ops = bounds
         r = {"kernel": kernel, "shape": shape, "ms": cuda_time(fn, iters),
              "device_ms": cuda_time(fn, iters, queued=True),
              "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops) * 1e3,
              "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+        if gathers is not None:
+            clock = sm_clock_mhz()
+            rate = gathers / (r["device_ms"] * 1e-3)
+            r.update(sm_clock_mhz=clock, gathers_per_s=rate,
+                     gather_share=rate / (sms * 32 * clock * 1e6),
+                     wavefronts=check.gather_wavefronts(b, offset))
         rows.append(r)
         log("[timing] " + json.dumps(r))
         return r
 
     def mean(rs, weights):
         tot = sum(weights)
+        keys = ["ms", "device_ms", "plain_ms", "bound_ms"]
+        keys += ["gather_share"] if "gather_share" in rs[0] else []
         return {k: sum(r[k] * w for r, w in zip(rs, weights)) / tot
-                for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+                for k in keys}
 
     # delta_matmul: the 7 calibration projections of a layer, M = B, asym
     rs = []
@@ -623,7 +677,8 @@ def time_kernels(cfg, dev, launches, errs):
                           cuda_time(lambda: ref.fused_qdot_ref(
                               c["x"], c["qw"], c["dlut"], c["scal"],
                               c["ntab"], c["comp_r"], 0, True, True), 3),
-                          fused_bound(M, K, N)))
+                          fused_bound(M, K, N), gathers=M * K * N,
+                          b=c["qw"]))
             w.append(weight)
     summary["fused_qdot"] = (mean(rs, w), rs)
 
@@ -648,14 +703,19 @@ def time_kernels(cfg, dev, launches, errs):
         for i, (name, K, N) in enumerate(train_kinds(cfg)):
             signed = False
             if tag == "lut":
-                c = check.lut_case(M, K, N, signed, 400 + i, dev)
-                plain_c = dict(c, lut=ops._widen(c["lut"], c["unsigned"]))
-                del plain_c["unsigned"]
-                rs.append(row(kname, f"{name} M={M} K={K} N={N}",
-                              lambda: ops.lut_matmul(**c), 10,
-                              cuda_time(lambda: ref.lut_matmul_ref(
-                                  **plain_c), 2),
-                              lut_bound(M, K, N)))
+                # the uniform operands of every earlier run (the JSON
+                # line's row), then the bank-conflict-free and the
+                # quantized-normal ones (check.lut_indices)
+                for pattern in check.LUT_PATTERNS:
+                    c = check.lut_case(M, K, N, signed, 400 + i, dev,
+                                       pattern=pattern)
+                    r = row(kname, f"{name} M={M} K={K} N={N} {pattern}",
+                            lambda: ops.lut_matmul(**c), 10,
+                            cuda_time(lambda: check.lut_plain(c), 2),
+                            lut_bound(M, K, N), gathers=M * K * N,
+                            b=c["b"], offset=c["offset"])
+                    if pattern == "uniform":
+                        rs.append(r)
             else:
                 c = check.residual_case(M, K, N, signed, RANK, 500 + i, dev)
                 rs.append(row(kname, f"{name} M={M} K={K} N={N} r={RANK}",
@@ -677,7 +737,9 @@ def time_kernels(cfg, dev, launches, errs):
             "max_abs_err": errs[name], "ms": m["ms"],
             "device_ms": m["device_ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"],
-            "bound_by": max(set(by), key=by.count), "library_ms": None})
+            "bound_by": max(set(by), key=by.count), "library_ms": None,
+            **({"gather_share": m["gather_share"]} if "gather_share" in m
+               else {})})
     log("[timing] library_ms is null: no single PyTorch call computes the "
         "approximate (delta-table) product, the fused quantize-product-"
         "dequant, the qk-norm/rope/bf16-row decode attention step, the "

@@ -77,24 +77,84 @@ def check_delta(case) -> dict:
     return {"max_abs_err": 0.0}
 
 
-def lut_case(M, K, N, signed, seed, device, design="design2"):
-    """Inputs of one lut_matmul launch as the 'xla' backend makes them:
-    operands pre-shifted into [0, 255], the narrowed product table."""
+LUT_PATTERNS = ("uniform", "conflict_free", "normal")
+
+
+def _quantized_normal(rng, shape):
+    """uint8 codes of normal samples quantized over their min..max, as
+    quant.quantize_uint8 quantizes a tensor: clustered around the zero
+    point, as real activations and weights are."""
+    x = rng.normal(size=shape)
+    scale = (x.max() - x.min()) / 255.0
+    zp = np.clip(np.round(-x.min() / scale), 0, 255)
+    return np.clip(np.round(x / scale) + zp, 0, 255).astype(np.int64)
+
+
+def lut_indices(M, K, N, pattern, rng):
+    """(a (M, K), b (K, N)) table indices in [0, 255] for one of
+    LUT_PATTERNS: 'uniform' random (a warp's 32 columns meet 1-4 times in
+    a shared-memory bank); 'conflict_free', a uniform with b[k, n] = 2 (n
+    mod 32) + (k & 1), so 32 neighbouring columns read 32 different
+    banks; 'normal', both quantized from normal samples."""
+    if pattern == "uniform":
+        return rng.integers(0, 256, (M, K)), rng.integers(0, 256, (K, N))
+    if pattern == "conflict_free":
+        a = rng.integers(0, 256, (M, K))
+        return a, 2 * (np.arange(N)[None, :] % 32) + (np.arange(K)[:, None]
+                                                      & 1)
+    if pattern == "normal":
+        return _quantized_normal(rng, (M, K)), _quantized_normal(rng, (K, N))
+    raise ValueError(f"unknown operand pattern {pattern!r}; expected one of "
+                     f"{LUT_PATTERNS}")
+
+
+def gather_wavefronts(b, offset: int = 0, rows: int = 256) -> float:
+    """Mean shared-memory wavefronts of one warp's table gather for the
+    weight operand b (K, N): a warp's 32 lanes are 32 neighbouring
+    columns reading one table row at one k, entry ib = (b + offset) &
+    255, 16-bit entries two to a 32-bit word, 32 banks.  Lanes reading
+    one word share its wavefront; each further word of a bank costs one
+    more.  1.0 is conflict-free; averaged over the first ``rows`` k and
+    every whole group of 32 columns."""
+    b = torch.as_tensor(b)[:rows]
+    n = b.shape[1] // 32 * 32
+    words = (((b[:, :n].long() + offset) & 255) >> 1).reshape(-1, 32)
+    seen = torch.zeros((words.shape[0], 128), dtype=torch.bool,
+                       device=words.device)
+    seen.scatter_(1, words, True)
+    # word w lies in bank w % 32: distinct words per bank, its maximum
+    per_bank = seen.reshape(-1, 4, 32).sum(1)
+    return float(per_bank.max(1).values.float().mean())
+
+
+def lut_case(M, K, N, signed, seed, device, design="design2",
+             pattern="uniform", shifted=True):
+    """Inputs of one lut_matmul launch: the narrowed product table and
+    operands drawn by lut_indices.  ``shifted``: as the Pallas function
+    takes them, pre-shifted into [0, 255] (uint8 b, offset 0); otherwise
+    as the 'xla' backend passes them, int8-valued with offset 128 when
+    ``signed``."""
     rng = np.random.default_rng(seed)
-    a = rng.integers(0, 256, (M, K)).astype(np.int32)
-    b = rng.integers(0, 256, (K, N)).astype(np.uint8)
+    a, b = lut_indices(M, K, N, pattern, rng)
+    off = 128 if signed and not shifted else 0
     lut, unsigned = ops.narrow_lut(ops.get_signed_lut(design) if signed
                                    else ops.get_lut(design))
-    return dict(a=torch.from_numpy(a).to(device),
-                b=torch.from_numpy(b).to(device), lut=lut.to(device),
-                unsigned=unsigned)
+    return dict(a=torch.from_numpy((a - off).astype(np.int32)).to(device),
+                b=torch.from_numpy((b - off).astype(
+                    np.int8 if off else np.uint8)).to(device),
+                lut=lut.to(device), unsigned=unsigned, offset=off)
+
+
+def lut_plain(case) -> torch.Tensor:
+    """The plain version of one lut_matmul launch."""
+    return ref.approx_matmul_ref(case["a"], case["b"],
+                                 ops._widen(case["lut"], case["unsigned"]),
+                                 case["offset"])
 
 
 def check_lut(case) -> dict:
     got = _launches("lut_matmul", lambda: ops.lut_matmul(**case))
-    want = ref.lut_matmul_ref(case["a"], case["b"],
-                              ops._widen(case["lut"], case["unsigned"]))
-    assert torch.equal(got, want), "lut_matmul: kernel != plain"
+    assert torch.equal(got, lut_plain(case)), "lut_matmul: kernel != plain"
     return {"max_abs_err": 0.0}
 
 
@@ -305,10 +365,10 @@ class CpuShadow:
         self._note("delta_matmul", 0.0)
         return out
 
-    def _lut(self, a, b, lut, unsigned):
-        out = self.saved["lut_matmul"](a, b, lut, unsigned)
-        want = ref.lut_matmul_ref(_cpu(a), _cpu(b),
-                                  ops._widen(_cpu(lut), unsigned))
+    def _lut(self, a, b, lut, unsigned, offset=0):
+        out = self.saved["lut_matmul"](a, b, lut, unsigned, offset)
+        want = ref.approx_matmul_ref(_cpu(a), _cpu(b),
+                                     ops._widen(_cpu(lut), unsigned), offset)
         assert torch.equal(out.cpu(), want), "lut_matmul: card != cpu"
         self._note("lut_matmul", 0.0)
         return out

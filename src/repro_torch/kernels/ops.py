@@ -5,8 +5,9 @@ Five kernels, each written by hand in CUDA C++ for Hopper
 
   delta_matmul      exact integer product + delta-table gather (split-K
                     over every SM for M <= 4)
-  fused_qdot        static activation quantization + the delta product +
-                    the dequant epilogue
+  fused_qdot        static activation quantization (a pre-pass, once per
+                    row) + the delta product + the dequant epilogue
+                    (split-K over every SM for M <= 4)
   decode_attention  qk-norm + rope + bf16 row rounding + masked GQA
                     attention with an online softmax, one decode step
   lut_matmul        product-LUT gather sum (16-bit table in shared memory)
@@ -223,35 +224,44 @@ def _widen(lut: torch.Tensor, unsigned: bool) -> torch.Tensor:
 
 
 def lut_matmul(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor,
-               unsigned: bool) -> torch.Tensor:
-    """S[m,n] = sum_k LUT[a[m,k], b[k,n]], int32: the product-LUT gather
-    sum, offset-free (signed operands arrive pre-shifted by +128).
+               unsigned: bool, offset: int = 0) -> torch.Tensor:
+    """S[m,n] = sum_k LUT[a[m,k]+offset, b[k,n]+offset], int32: the
+    product-LUT gather sum.
 
-    a: (M, K) int32 and b: (K, N) uint8 on the card, any integer dtype on
-    the CPU, values in [0, 255].  (lut, unsigned): the (256, 256) product
+    a: (M, K) int32 and b: (K, N) uint8 (offset 0) or int8 (offset 128)
+    on the card, any integer dtype on the CPU; uint8-valued operands with
+    offset 0, int8-valued ones with offset 128 (or pre-shifted into
+    [0, 255] with offset 0).  (lut, unsigned): the (256, 256) product
     table as ``narrow_lut`` narrows it, an int16 tensor whose 16-bit
     entries read as uint16 when ``unsigned`` and as int16 otherwise.
     """
     if a.device.type == "cpu":
-        return ref.lut_matmul_ref(a, b, _widen(lut, unsigned))
+        return ref.approx_matmul_ref(a, b, _widen(lut, unsigned), offset)
     if a.device.type != "cuda":
         raise _wrong_device("lut_matmul", a)
     name = "lut_matmul"
-    _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
-           f"{name}: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    _check(a.dtype == torch.int32, f"{name}: a must be int32, got {a.dtype}")
-    _check(b.dtype == torch.uint8, f"{name}: b must be uint8 (signed "
-           f"operands pre-shifted by +128), got {b.dtype}")
-    _check(tuple(lut.shape) == (256, 256) and lut.dtype == torch.int16,
-           f"{name}: the narrowed table must be int16 (256, 256), got "
-           f"{lut.dtype} {tuple(lut.shape)}")
+    if not (a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0]):
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype != torch.int32:
+        raise ValueError(f"{name}: a must be int32, got {a.dtype}")
+    if (b.dtype, offset) not in ((torch.uint8, 0), (torch.int8, 128)):
+        raise ValueError(f"{name}: b must be uint8 with offset 0 or int8 "
+                         f"with offset 128, got {b.dtype} with offset "
+                         f"{offset}")
+    if tuple(lut.shape) != (256, 256) or lut.dtype != torch.int16:
+        raise ValueError(f"{name}: the narrowed table must be int16 (256, "
+                         f"256), got {lut.dtype} {tuple(lut.shape)}")
+    if lut.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must be 16-byte aligned (it "
+                         f"is copied into shared memory in one bulk copy)")
     _check_cuda(name, a, b, lut)
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     from ._build import kernel
     err = kernel(name)(a.data_ptr(), b.data_ptr(), lut.data_ptr(),
-                       out.data_ptr(), M, K, N, int(bool(unsigned)),
+                       out.data_ptr(), M, K, N, int(bool(unsigned)), offset,
                        _stream())
     _raise_cuda(name, err)
     LAUNCHES[name] += 1
@@ -319,18 +329,12 @@ def _approx_matmul_2d(a2, b, design, backend, rank, signed):
     cuda = a2.is_cuda
     if backend == "exact":
         return ref.exact_matmul_ref(a2, b)
-    if backend in LUT_BACKENDS:
-        # offset-free kernel: operands pre-shifted into the table's
-        # [0, 255] index domain
-        lut, unsigned = lut_table(design, signed, a2.device)
-        a2 = a2.to(torch.int32) + off
-        b = b.to(torch.int32) + off
-        if cuda:
-            a2, b = a2.contiguous(), b.to(torch.uint8).contiguous()
-        return lut_matmul(a2, b, lut, unsigned)
     if cuda:
         a2 = a2.to(torch.int32).contiguous()
         b = b.to(torch.int8 if signed else torch.uint8).contiguous()
+    if backend in LUT_BACKENDS:
+        lut, unsigned = lut_table(design, signed, a2.device)
+        return lut_matmul(a2, b, lut, unsigned, offset=off)
     if backend in RESIDUAL_BACKENDS:
         F, G = factor_tables(design, rank, signed, a2.device)
         return residual_matmul(a2, b, F, G, offset=off)
@@ -377,8 +381,7 @@ def approx_matmul(a: torch.Tensor, b: torch.Tensor, design: str = "design2",
     ``signed``.  Every backend name of the reference is accepted; the
     port has no XLA, so a name that says 'xla' there means the same
     function here.  On a CUDA tensor:
-      'xla', 'pallas_legacy'          -> lut_matmul (product-LUT gather;
-                                         signed operands pre-shifted)
+      'xla', 'pallas_legacy'          -> lut_matmul (product-LUT gather)
       'residual', 'residual_xla'      -> residual_matmul (exact product +
                                          rank-``rank`` correction;
                                          approximate)
@@ -431,13 +434,40 @@ def pack_fused_operands(N: int, device, *, sx, zx=None, sw, zw=None,
     return scal, ntab, cr
 
 
+def _up16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def fused_scratch_layout(M: int, K: int, N: int) -> dict:
+    """Byte offsets of the fused kernel's device scratch (the layout of
+    ``Layout`` in csrc/fused_qdot.cu, which refuses a smaller scratch):
+    the quantized activations as bytes, M rows of ``kp`` (K padded to a
+    multiple of 16), then rowsum(qx) int32 (M) at ``rs`` and
+    rowsum(mu_r[qx]) float32 (M) at ``rc``; at M <= 4 (the split-K
+    schedule) also the int32 accumulator (M, N) at ``acc`` and one
+    arrival count per 128-column tile at ``cnt``.  ``bytes`` is the
+    total."""
+    kp = _up16(K) if K > 16 else 16
+    rs = _up16(M * kp)
+    rc = _up16(rs + 4 * M)
+    acc = _up16(rc + 4 * M)
+    cnt = _up16(acc + 4 * M * N)
+    splitk = M <= 4
+    total = cnt + 4 * ((N + 127) // 128) if splitk else acc
+    return {"kp": kp, "rs": rs, "rc": rc, "acc": acc, "cnt": cnt,
+            "splitk": splitk, "bytes": total}
+
+
 def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
                       scal: torch.Tensor, ntab: torch.Tensor,
                       comp_r: torch.Tensor, *, signed: bool = False,
                       compensate: bool = False, return_int: bool = False):
     """The fused kernel on packed operands: float x (M, K) @ prequantized
     qw (K, N) -> float32 (M, N).  ``return_int`` also returns the
-    quantized activations (M, K) and the int32 accumulator (M, N)."""
+    quantized activations (M, K) and the int32 accumulator (M, N).  On
+    the card one call is two launches, the quantize pre-pass and the
+    gather (split-K at M <= 4), into a scratch allocated here
+    (fused_scratch_layout); it counts as one launch of the kernel."""
     offset = 128 if signed else 0
     if x.device.type == "cpu":
         return ref.fused_qdot_ref(x, qw, dlut, scal, ntab, comp_r,
@@ -447,32 +477,41 @@ def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
     if x.device.type != "cuda":
         raise _wrong_device("fused_qdot", x)
     name = "fused_qdot"
-    _check(x.dim() == 2 and qw.dim() == 2 and x.shape[1] == qw.shape[0],
-           f"{name}: shapes {tuple(x.shape)} @ {tuple(qw.shape)}")
+    # plain ifs: a message is formatted only when a check fails (decode
+    # makes 112 calls a step, each a 20-70 µs kernel)
+    if not (x.dim() == 2 and qw.dim() == 2 and x.shape[1] == qw.shape[0]):
+        raise ValueError(f"{name}: shapes {tuple(x.shape)} @ "
+                         f"{tuple(qw.shape)}")
     M, K = x.shape
     N = qw.shape[1]
-    _check(x.dtype == torch.float32, f"{name}: x must be float32")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name}: x must be float32")
     want = torch.int8 if signed else torch.uint8
-    _check(qw.dtype == want, f"{name}: qw must be {want} for "
-           f"{'sym_i8' if signed else 'asym_u8'}, got {qw.dtype}")
+    if qw.dtype != want:
+        raise ValueError(f"{name}: qw must be {want} for "
+                         f"{'sym_i8' if signed else 'asym_u8'}, got "
+                         f"{qw.dtype}")
     _check_table(name, dlut)
-    _check(scal.dtype == torch.float32 and scal.numel() >= 3,
-           f"{name}: scal must be float32 with >= 3 entries")
-    _check(ntab.dtype == torch.float32 and tuple(ntab.shape) == (4, N),
-           f"{name}: ntab must be float32 (4, {N})")
-    _check(comp_r.dtype == torch.float32 and comp_r.numel() == 256,
-           f"{name}: comp_r must be float32 (256,)")
+    if not (scal.dtype == torch.float32 and scal.numel() >= 3):
+        raise ValueError(f"{name}: scal must be float32 with >= 3 entries")
+    if not (ntab.dtype == torch.float32 and tuple(ntab.shape) == (4, N)):
+        raise ValueError(f"{name}: ntab must be float32 (4, {N})")
+    if not (comp_r.dtype == torch.float32 and comp_r.numel() == 256):
+        raise ValueError(f"{name}: comp_r must be float32 (256,)")
     _check_cuda(name, x, qw, dlut, scal, ntab, comp_r)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     qx = acc = None
     if return_int:
         qx = torch.empty((M, K), dtype=torch.int32, device=x.device)
         acc = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    nbytes = fused_scratch_layout(M, K, N)["bytes"]
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
     from ._build import kernel
     err = kernel(name)(x.data_ptr(), qw.data_ptr(), dlut.data_ptr(),
                        scal.data_ptr(), ntab.data_ptr(), comp_r.data_ptr(),
                        out.data_ptr(), qx.data_ptr() if return_int else None,
-                       acc.data_ptr() if return_int else None, M, K, N,
+                       acc.data_ptr() if return_int else None,
+                       scratch.data_ptr(), nbytes, M, K, N,
                        int(not signed), int(compensate), _stream())
     _raise_cuda(name, err)
     LAUNCHES[name] += 1

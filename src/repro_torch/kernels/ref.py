@@ -98,9 +98,10 @@ def approx_matmul_ref(a: torch.Tensor, b: torch.Tensor, lut,
 
 
 def lut_matmul_ref(a: torch.Tensor, b: torch.Tensor, lut) -> torch.Tensor:
-    """S[m,n] = sum_k LUT[a[m,k], b[k,n]] (int32), the plain version of
-    ``csrc/lut_matmul.cu``: offset-free (signed operands arrive
-    pre-shifted by +128), as the Pallas function."""
+    """S[m,n] = sum_k LUT[a[m,k], b[k,n]] (int32): offset-free (signed
+    operands arrive pre-shifted by +128), as the Pallas function.  The
+    plain version of ``csrc/lut_matmul.cu``, which also takes the offset,
+    is approx_matmul_ref; at offset 0 it is this function."""
     return approx_matmul_ref(a, b, lut, 0)
 
 

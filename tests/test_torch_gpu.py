@@ -76,6 +76,55 @@ def test_fused_kernel_matches_plain(cuda, signed, compensate, shape):
                                        compensate=compensate))
 
 
+DECODE_SHAPES = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
+TRAIN_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048)]
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("compensate", [False, True])
+@pytest.mark.parametrize("M", [1, 2, 3, 4])
+@pytest.mark.parametrize("K,N", DECODE_SHAPES + [(77, 131)])
+def test_fused_split_k_is_exact_and_repeatable(cuda, signed, compensate, M,
+                                               K, N):
+    """M <= 4 takes the split-K schedule: the quantize pre-pass, then
+    64-deep k chunks spread over the SMs whose partials meet by atomicAdd,
+    and the CTA that brings a tile's last chunk runs the epilogue.  At the
+    four merged decode projections of qwen3-1.7b and a ragged shape: qx
+    and acc bit-exact, out bit-equal to the plain version without
+    compensation (within check.FUSED_RTOL with it), and two launches
+    bit-equal in every output.  Each launch's scratch comes from the
+    caching allocator right after a block of the same size held garbage,
+    which the pre-pass must clear before the atomic adds."""
+    case = check.fused_case(M, K, N, signed, M * K + N, cuda,
+                            compensate=compensate)
+    nbytes = ops.fused_scratch_layout(M, K, N)["bytes"]
+
+    def garbage():    # freed at once: the caching allocator reuses it
+        torch.full((nbytes,), 0x7F, dtype=torch.uint8, device=cuda)
+
+    garbage()
+    check.check_fused(case)
+    garbage()
+    first = ops.fused_qdot_packed(**case, return_int=True)
+    garbage()
+    second = ops.fused_qdot_packed(**case, return_int=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("K,N", DECODE_SHAPES)
+def test_fused_tile_prefill_shapes(cuda, signed, K, N):
+    """M > 4 takes the tile schedule (32 x 128 tiles over a persistent
+    grid) on the pre-pass's bytes: the prefill's M = 256 at the merged
+    projections, with compensation, repeatable."""
+    case = check.fused_case(256, K, N, signed, K + N, cuda)
+    check.check_fused(case)
+    first = ops.fused_qdot_packed(**case, return_int=True)
+    for a, b in zip(first, ops.fused_qdot_packed(**case, return_int=True)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("per_slot", [False, True])
 @pytest.mark.parametrize("window", [None, 5])
 @pytest.mark.parametrize("hd,qk_norm", [(128, True), (16, True),
@@ -166,6 +215,44 @@ def test_lut_kernel_exhaustive_pairs(cuda, signed, design):
 
 
 @pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("pattern", check.LUT_PATTERNS)
+@pytest.mark.parametrize("K,N", TRAIN_SHAPES)
+def test_lut_kernel_operand_patterns(cuda, signed, pattern, K, N):
+    """The four training projections at M = 512 on each operand pattern
+    chip_smoke.py times (uniform, bank-conflict-free, quantized normal),
+    through the offset as the 'xla' backend passes them: bit-exact."""
+    check.check_lut(check.lut_case(512, K, N, signed, K + N, cuda,
+                                   pattern=pattern, shifted=False))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("shape", [(1, 1, 1), (4, 2048, 1024), (5, 77, 131),
+                                   (33, 130, 17), (130, 300, 520),
+                                   (512, 64, 1000)])
+def test_lut_kernel_offset_operands(cuda, signed, shape):
+    """Unshifted operands (a int32, b int8 with offset 128 when signed)
+    at ragged shapes: bit-exact and repeatable."""
+    case = check.lut_case(*shape, signed, sum(shape), cuda, shifted=False)
+    check.check_lut(case)
+    assert torch.equal(ops.lut_matmul(**case), ops.lut_matmul(**case))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("design", ["design2", "exact"])
+def test_lut_kernel_exhaustive_pairs_with_offset(cuda, signed, design):
+    """K=1 over every operand pair as the operands come (int8 b and
+    offset 128 when signed): the output is the gate-level table."""
+    vals = torch.arange(-128, 128) if signed else torch.arange(256)
+    case = check.lut_case(1, 1, 1, signed, 0, cuda, design=design,
+                          shifted=False)
+    case = dict(case, a=vals.to(torch.int32)[:, None].contiguous().to(cuda),
+                b=vals[None, :].to(case["b"].dtype).contiguous().to(cuda))
+    check.check_lut(case)
+    table = (ops.get_signed_lut if signed else ops.get_lut)(design)
+    assert (ops.lut_matmul(**case).cpu().numpy() == table).all()
+
+
+@pytest.mark.parametrize("signed", MODES)
 @pytest.mark.parametrize("rank", [4, 16, 32, 256])
 @pytest.mark.parametrize("shape", [(64, 256, 128), (5, 77, 131),
                                    (77, 131, 45)])
@@ -210,6 +297,9 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ops.lut_matmul(case["a"], case["b"], bad.to(cuda), True)
     with pytest.raises(ValueError, match="uint8"):
         ops.lut_matmul(case["a"], case["b"].to(torch.int32), case["lut"],
+                       case["unsigned"])
+    with pytest.raises(ValueError, match="int8 with offset 128"):
+        ops.lut_matmul(case["a"], case["b"].to(torch.int8), case["lut"],
                        case["unsigned"])
     r = check.residual_case(4, 64, 32, True, 8, 0, cuda)
     with pytest.raises(ValueError, match="int8 with offset 128"):

@@ -414,3 +414,115 @@ def test_residual_table_sum_matches_reference(mode, signed, rank, shape,
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=RESID_TOL_REL * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# Python-side helpers of the redesigned gather kernels: lut_matmul's
+# offset (signed operands passed as they are), the operand patterns that
+# chip_smoke.py times it on, and the fused kernel's scratch layout.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode,signed", MODES)
+@pytest.mark.parametrize("shape", [(5, 77, 131), (3, 1000, 17), (1, 1, 1)])
+def test_lut_matmul_offset_matches_reference(mode, signed, shape):
+    """ops.lut_matmul on unshifted operands with the offset (int8 b, offset
+    128 when signed) equals the reference's approx_matmul_ref; the 'xla'
+    backend passes them so."""
+    from repro_torch.kernels import check
+    from repro.kernels import ops as rops
+    M, K, N = shape
+    case = check.lut_case(M, K, N, signed, sum(shape), "cpu", shifted=False)
+    off = 128 if signed else 0
+    assert case["offset"] == off
+    assert case["b"].dtype == (torch.int8 if signed else torch.uint8)
+    before = dict(ops.LAUNCHES)
+    got = ops.lut_matmul(**case)
+    assert ops.LAUNCHES == before
+    r_table = (rops.get_signed_lut if signed else rops.get_lut)("design2")
+    want = np.asarray(rref.approx_matmul_ref(
+        jnp.asarray(case["a"].numpy()),
+        jnp.asarray(case["b"].numpy().astype(np.int32)), r_table,
+        offset=off))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(check.lut_plain(case).numpy(), want)
+    # the same product through the backend that launches the kernel
+    xla = ops.approx_matmul(case["a"], case["b"].to(torch.int32), "design2",
+                            "xla", signed=signed)
+    np.testing.assert_array_equal(xla.numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("pattern", ["uniform", "conflict_free", "normal"])
+@pytest.mark.parametrize("signed", [False, True])
+def test_lut_operand_patterns(pattern, signed):
+    """The three operand patterns of the lut_matmul timing: indices in
+    [0, 255]; 'conflict_free' puts 32 neighbouring columns on 32 different
+    shared-memory banks ((b >> 1) & 31) at every k; 'normal' clusters
+    around the zero point; the shifted and unshifted cases of one seed are
+    the same table indices."""
+    from repro_torch.kernels import check
+    M, K, N = 64, 96, 256
+    shifted = check.lut_case(M, K, N, signed, 7, "cpu", pattern=pattern)
+    raw = check.lut_case(M, K, N, signed, 7, "cpu", pattern=pattern,
+                         shifted=False)
+    a, b = shifted["a"].numpy(), shifted["b"].numpy().astype(np.int64)
+    assert a.min() >= 0 and a.max() <= 255 and b.min() >= 0 and b.max() <= 255
+    off = raw["offset"]
+    np.testing.assert_array_equal((raw["a"].numpy() + off) & 255, a)
+    np.testing.assert_array_equal(
+        (raw["b"].numpy().astype(np.int64) + off) & 255, b)
+    banks = (b >> 1) & 31
+    distinct = np.array([[len(set(banks[k, n:n + 32])) for n in
+                          range(0, N, 32)] for k in range(K)])
+    if pattern == "conflict_free":
+        assert (distinct == 32).all()
+    else:
+        assert distinct.mean() < 32
+    if pattern == "normal":
+        # quantized over min..max: most codes within 2 sigma of the
+        # zero point (about 1/8 of the range), none outside the range
+        for v in (a, b):
+            centre = np.median(v)
+            assert np.mean(np.abs(v - centre) < 64) > 0.9
+    np.testing.assert_array_equal(check.lut_plain(shifted).numpy(),
+                                  check.lut_plain(raw).numpy())
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (4, 2048, 4096),
+                                   (3, 77, 131), (4, 6144, 2048),
+                                   (5, 77, 131), (256, 2048, 12288),
+                                   (70, 200, 24)])
+def test_fused_scratch_layout(M, K, N):
+    """The fused kernel's scratch: qx bytes in rows padded to 16, the two
+    row sums, and at M <= 4 (split-K) the int32 accumulator and one
+    arrival count per 128-column tile; every part 16-byte aligned, none
+    overlapping."""
+    L = ops.fused_scratch_layout(M, K, N)
+    assert L["kp"] % 16 == 0 and L["kp"] >= max(K, 16)
+    assert L["splitk"] == (M <= 4)
+    parts = [(0, M * L["kp"]), (L["rs"], 4 * M), (L["rc"], 4 * M)]
+    if L["splitk"]:
+        parts += [(L["acc"], 4 * M * N), (L["cnt"], 4 * (-(-N // 128)))]
+    for (o, n), (o2, _) in zip(parts, parts[1:] + [(L["bytes"], 0)]):
+        assert o % 16 == 0 and o + n <= o2
+    end = parts[-1][0] + parts[-1][1]
+    assert end <= L["bytes"] < end + 16
+
+
+def test_gather_wavefronts_counts_bank_conflicts():
+    """check.gather_wavefronts: one wavefront when a warp's 32 columns
+    read 32 banks or one word; four when they read four words of one
+    bank; about 2.78 for uniform bytes (the expected maximum over banks
+    of distinct words, 32 lanes over 128 words); the conflict-free
+    pattern reads 1.0 at every k."""
+    from repro_torch.kernels import check
+    n = np.arange(64)
+    assert check.gather_wavefronts(np.tile(2 * (n % 32), (3, 1))) == 1.0
+    assert check.gather_wavefronts(np.full((2, 64), 7)) == 1.0
+    four = np.tile(np.array([0, 64, 128, 192] * 8), (1, 2))
+    assert check.gather_wavefronts(four) == 4.0
+    rng = np.random.default_rng(0)
+    uniform = check.gather_wavefronts(rng.integers(0, 256, (256, 2048)))
+    assert 2.7 < uniform < 2.86
+    case = check.lut_case(4, 64, 256, True, 0, "cpu",
+                          pattern="conflict_free", shifted=False)
+    assert check.gather_wavefronts(case["b"], case["offset"]) == 1.0
