@@ -14,7 +14,10 @@ error and carries on:
                ragged shape: fused_qdot at M = 1..4 (split-K) and 256,
                with and without compensation, two launches bit-equal;
                lut_matmul pre-shifted, through the offset and on three
-               operand patterns
+               operand patterns; decode_attention at the path's cases,
+               at long context (S_max 4096), on both sides of every chunk
+               edge, with a window across one, two launches bit-equal,
+               and with the append (the caches' other rows unchanged)
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
@@ -22,7 +25,9 @@ error and carries on:
   5. parity    the serving path at 2 layers of full width, same weights,
                table and prompts: every kernel launch of the card's run
                held against its plain version on the CPU from the same
-               inputs; the free-running CPU run reported beside it
+               inputs (the attention's appended rows read from the card's
+               caches, every other row held to a copy from before the
+               call); the free-running CPU run reported beside it
   6. train     full-width qwen3-1.7b QAT through repro_torch.launch.train,
                --batch 4 --seq 128 (M=512 rows per projection), remat on,
                2 steps each of --backend xla and residual in asym_u8 and
@@ -42,7 +47,11 @@ error and carries on:
                of the load/store units' lane rate (SMs x 32 x the SM clock
                nvidia-smi reads beside the timing), lut_matmul on three
                operand patterns (uniform, bank-conflict-free, quantized
-               normal)
+               normal); decode_attention with and without the append at
+               the path's shape and at long context (S_max 4096)
+  9. trace     torch.profiler over full-width decode steps of the serve
+               path: kernel launches per step by name, the device's busy
+               share of the traced window, host-side op counts
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -112,44 +121,6 @@ def sm_clock_mhz() -> float:
                         "--format=csv,noheader,nounits"], capture_output=True,
                        text=True, check=True, timeout=60)
     return float(r.stdout.strip().splitlines()[0])
-
-
-def cuda_time(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
-    """Mean ms per call of fn() on the card: CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls.
-
-    ``queued`` (a wrapper's ``device_ms``): the calls are queued behind a
-    spin on the card (torch.cuda._sleep) at least twice as long as the
-    host took to issue them, so the events time the card's work and not
-    the host's launch rate; it is checked that the host had issued every
-    call before the first one started."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    spin = 0
-    if queued:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        spin = int(2 * (time.perf_counter() - t0) * 2e9) + 10**6  # <= 2 GHz
-    for _ in range(4):
-        torch.cuda.synchronize()
-        if spin:
-            torch.cuda._sleep(spin)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        ahead = not spin or not start.query()
-        torch.cuda.synchronize()
-        if ahead:
-            return start.elapsed_time(end) / iters
-        spin *= 4
-    raise AssertionError("cuda_time: the card started before the host had "
-                         "queued the timed calls")
 
 
 # ---------------------------------------------------------------------------
@@ -239,22 +210,78 @@ def check_kernels(cfg, dev):
                         f"|err| {r['max_abs_err']:.3e} "
                         f"({r['max_rel_err']:.3e} of max |y|); two launches "
                         f"bit-equal")
+    errs["decode_attention"] = check_attention_cases(cfg, dev)
+    return errs
+
+
+def check_attention_cases(cfg, dev) -> float:
+    """decode_attention against its plain version at the path's cases,
+    at long context and at the chunk edges (check.check_attention: two
+    launches bit-equal too); the append (check.check_attention_append)
+    at the path's cases and at long context.  Returns the max |out err|."""
+    import torch
+    from repro_torch.kernels import check, ops
     H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    cases = [("decode, per-slot pos", dict(B=B, S=P + G, pos=[64, 70, 75, 79])),
-             ("decode, one pos", dict(B=B, S=P + G, per_slot=False)),
-             ("calibration", dict(B=B, S=CALIB_TOKENS, pos=[0, 1, 33, 65])),
-             ("ragged + window", dict(B=3, S=77, window=20))]
-    for i, (name, kw) in enumerate(cases):
-        Bq, S = kw.pop("B"), kw.pop("S")
-        r = check.check_attention(check.attention_case(Bq, S, H, Kv, hd, i,
-                                                       dev, **kw))
-        errs["decode_attention"] = max(errs["decode_attention"],
-                                       r["max_abs_err"])
-        log(f"[kernels] decode_attention {name} B={Bq} S={S}: v rows "
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    long_pos = [0, 1023, 2500, 4095]
+    cases = [("decode, per-slot pos", dict(B=B, S=P + G, pos=[64, 70, 75, 79]),
+              True),
+             ("decode, one pos", dict(B=B, S=P + G, per_slot=False), True),
+             ("calibration", dict(B=B, S=CALIB_TOKENS, pos=[0, 1, 33, 65]),
+              True),
+             ("ragged + window", dict(B=3, S=77, window=20), False),
+             ("long context", dict(B=B, S=4096, pos=long_pos), True),
+             ("window across chunk edges", dict(B=B, S=P + G, window=20,
+                                                pos=[40, 47, 63, 79]), False)]
+    for S in (P + G, CALIB_TOKENS, 4096):
+        edges = check.attention_edge_positions(S, B, Kv, hd, sms)
+        if S == 4096:       # the first and last chunk and tile edges
+            edges = edges[:B] + edges[-B:]
+        for i in range(0, len(edges), B):
+            pos = (edges[i:i + B] + [S - 1] * B)[:B]
+            cases.append(("chunk edges", dict(B=B, S=S, pos=pos), False))
+    # every chunk and tile edge at long context under a window of 20, the
+    # inputs of tests/test_torch_gpu.py::test_attention_kernel_at_chunk_edges
+    # (seed S): a moved k row weighs most under a short window
+    edges = check.attention_edge_positions(4096, B, Kv, hd, sms)
+    for i in range(0, len(edges), B):
+        pos = (edges[i:i + B] + [4095] * B)[:B]
+        cases.append(("window 20 at long-context edges",
+                      dict(B=B, S=4096, window=20, pos=pos, seed=4096),
+                      False))
+    err, flipped, flipped_err = 0.0, 0, 0.0
+    for i, (name, kw, append) in enumerate(cases):
+        Bq, S, seed = kw.pop("B"), kw.pop("S"), kw.pop("seed", i)
+        case = check.attention_case(Bq, S, H, Kv, hd, seed, dev, **kw)
+        chunks, rows = ops.attention_chunks(S, Bq, Kv, sms)
+        tile = ops.attention_tile_rows(rows, hd)
+        r = check.check_attention(case)
+        err = max(err, r["max_abs_err"])
+        log(f"[kernels] decode_attention {name} B={Bq} S={S} pos="
+            f"{case['pos'].tolist()} ({chunks} chunks of {rows}, tiles of "
+            f"{tile}): v rows "
             f"bit-exact, {r['row_flips']} of {r['row_entries']} k-row "
             f"entries one bf16 step apart, max |out err| "
-            f"{r['max_abs_err']:.3e}")
-    return errs
+            f"{r['max_abs_err']:.3e}; two launches bit-equal")
+        if r["flipped"]:
+            log(f"[kernels]   (slot, kv head) with a k row one bf16 step "
+                f"apart: {r['flipped']}; max |out err| over their heads "
+                f"{r['flipped_err']:.3e}")
+        flipped += len(r["flipped"])
+        flipped_err = max(flipped_err, r["flipped_err"])
+        if append:
+            a = check.check_attention_append(case)
+            log(f"[kernels] decode_attention {name} with the append: out "
+                f"bit-equal to the step's, rows at pos as the plain "
+                f"version's ({a['row_flips']} of {a['row_entries']} k-row "
+                f"entries one bf16 step apart), every other cache row "
+                f"unchanged")
+        del case
+    log(f"[kernels] decode_attention: {len(cases)} cases, every head "
+        f"within ATTN_TOL of the plain output; {flipped} (slot, kv head) "
+        f"pairs with a k row a bf16 step apart, max |out err| over their "
+        f"heads {flipped_err:.3e}")
+    return err
 
 
 def train_kinds(cfg):
@@ -622,6 +649,7 @@ def train_parity_two_layers(cfg_full):
 def time_kernels(cfg, dev, launches, errs):
     import torch
     from repro_torch.kernels import check, ops, ref
+    from repro_torch.kernels.check import cuda_time
     unmerged, merged = projection_shapes(cfg)
     rows, summary = [], {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -682,18 +710,33 @@ def time_kernels(cfg, dev, launches, errs):
             w.append(weight)
     summary["fused_qdot"] = (mean(rs, w), rs)
 
-    # decode_attention: mid-decode position (P + G/2) over an S=P+G cache
-    pos = P + G // 2
-    c = check.attention_case(B, P + G, cfg.n_heads, cfg.n_kv, cfg.hd, 7,
-                             dev, pos=[pos] * B)
-    r = row("decode_attention", f"B={B} H={cfg.n_heads} Kv={cfg.n_kv} "
-            f"hd={cfg.hd} S={P + G} pos={pos}",
-            lambda: ops.decode_attention_step(**c), 200,
-            cuda_time(lambda: ref.decode_attention_step_ref(**c), 50),
-            attention_bound(B, cfg.n_heads, cfg.n_kv, cfg.hd, pos))
-    summary["decode_attention"] = (
-        {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
-        [r])
+    # decode_attention: every slot at mid-decode position P + G/2 of an
+    # S=P+G cache (the step, as earlier trees timed it, is the JSON
+    # line's row; the path's call, with the append, beside it), then at
+    # 4095 of 4096 (long context)
+    H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    for S, pos, it in ((P + G, P + G // 2, 200), (4096, 4095, 50)):
+        c = check.attention_case(B, S, H, Kv, hd, 7, dev, pos=[pos] * B)
+        kc, vc = c["k_cache"].clone(), c["v_cache"].clone()
+        plain = cuda_time(lambda: ref.decode_attention_step_ref(**c),
+                          50 if S < 1024 else 5)
+        shape = f"B={B} H={H} Kv={Kv} hd={hd} S={S} pos={pos}"
+        r = row("decode_attention", f"{shape} step",
+                lambda: ops.decode_attention_step(**c), it, plain,
+                attention_bound(B, H, Kv, hd, pos))
+        row("decode_attention", f"{shape} append",
+            lambda: ops.decode_attention(
+                c["q"][:, None], c["k_new"][:, None], c["v_new"][:, None],
+                kc, vc, c["pos"], n_heads=H, n_kv=Kv, head_dim=hd,
+                rope_theta=c["theta"], q_gain=c["q_gain"],
+                k_gain=c["k_gain"]), it, plain,
+            attention_bound(B, H, Kv, hd, pos))
+        if S == P + G:
+            summary["decode_attention"] = (
+                {k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                   "bound_ms")}, [r])
+        del c, kc, vc
+        torch.cuda.empty_cache()
 
     # lut_matmul and residual_matmul: the training projections at
     # M = TB*TS, weighted by how many projections of a layer have each shape
@@ -746,6 +789,109 @@ def time_kernels(cfg, dev, launches, errs):
         "product-LUT gather sum or the exact product plus the "
         "correction-table gather sum")
     return kernels
+
+
+def _kernel_name(name: str) -> str:
+    """A device kernel's name without its return type, namespaces,
+    template arguments and parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    for cut in "<(":
+        name = name.split(cut)[0]
+    return name.split("::")[-1].strip()[:60] or "?"
+
+
+def trace_decode(cfg, steps: int = 4):
+    """torch.profiler over ``steps`` full-width decode steps of the serve
+    path (asym_u8, calibrated, merged projections, as phase 4 runs it),
+    after a prefill and two warm steps.  Prints the step's wall time
+    with and without the profiler, the device kernels launched per step
+    by name with their device time, the device's busy share of the
+    traced window (the union of device activity over the wall time) and
+    the host-side op counts per step (aten ops and the port's kernel
+    wrappers, ops.LAUNCHES)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import make_prefill_step, make_serve_step
+    args = serve.build_parser().parse_args(ARGS + ["--quant-mode",
+                                                   "asym_u8"])
+    dev = torch.device("cuda")
+    q = QuantConfig(design=args.design, backend="fused", mode="asym_u8",
+                    inference=True)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    params, _ = serve.prepare_params(params, cfg, q, args, device=dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
+    state = T.init_decode_state(cfg, B, P + G, device=dev)
+    tok, _, state = make_prefill_step(cfg, q)(
+        params, state, torch.as_tensor(prompts.astype(np.int32), device=dev))
+    step = make_serve_step(cfg, q)
+    for _ in range(2):
+        tok, _, state = step(params, state, tok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, _, state = step(params, state, tok)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, _, state = step(params, state, tok)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    wrappers = {k: v / steps for k, v in ops.LAUNCHES.items() if v}
+    events = list(prof.events())
+    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = {}        # aten ops the Python code calls (not those inside)
+    for e in events:
+        parent = e.cpu_parent
+        if e.device_type == DeviceType.CPU and e.name.startswith("aten::") \
+                and not (parent and parent.name.startswith("aten::")):
+            host[e.name] = host.get(e.name, 0) + 1
+    log(f"[trace] {steps} full-width decode steps (asym_u8, B={B}): "
+        f"{plain_ms:.3f} ms/step untraced, {wall_us / 1e3 / steps:.3f} "
+        f"ms/step under the profiler")
+    log(f"[trace] host, per step: {sum(host.values()) / steps:.1f} aten "
+        f"ops called from Python; kernel wrapper launches {wrappers}")
+    log("[trace] host, top aten ops per step: " + json.dumps(
+        {k: v / steps for k, v in sorted(host.items(),
+                                         key=lambda kv: -kv[1])[:12]}))
+    if not dev_ev:
+        log("[trace] the profiler recorded no device time on this machine: "
+            "the device side is not traced; the host-side counts above "
+            "stand alone")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_ev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    by_name = {}
+    for e in dev_ev:
+        n = _kernel_name(e.name)
+        c, t = by_name.get(n, (0, 0.0))
+        by_name[n] = (c + 1, t + e.time_range.elapsed_us())
+    log(f"[trace] device, per step: {len(dev_ev) / steps:.1f} launches "
+        f"(kernels, copies, sets), busy {busy / 1e3 / steps:.3f} ms of "
+        f"{wall_us / 1e3 / steps:.3f} ms wall: busy share "
+        f"{busy / wall_us:.4f}")
+    log("[trace] device launches per step by name (count, device us): "
+        + json.dumps({n: [c / steps, t / steps] for n, (c, t) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][1])}))
 
 
 def main() -> int:
@@ -806,6 +952,8 @@ def main() -> int:
     with torch.no_grad():
         phase("8. timing")
         kernels = time_kernels(cfg, dev, launches, errs)
+        phase("9. trace of the decode step")
+        trace_decode(cfg)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -36,8 +36,9 @@ SIGNATURES = {
                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
                     _I, _I, _I, _I, _I, _P]),
     "decode_attention": ("decode_attention_launch",
-                         [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _I,
-                          _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]),
+                         [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
+                          _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P]),
     "lut_matmul": ("lut_matmul_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "residual_matmul": ("residual_matmul_launch",

@@ -29,10 +29,18 @@ Tolerances, and why:
                     x1*cos - x2*sin cancels to near zero and f32 ulps of
                     the O(1) terms exceed a bf16 step of the result; at
                     most ROW_FLIP_MAX of entries differ at all.  The f32
-                    output (online vs two-pass softmax, dot-product order)
-                    within ATTN_TOL absolute and relative.
+                    output (a two-pass softmax per tile of positions,
+                    merged across tiles and chunks, vs one softmax over
+                    all; the dot-product order) within ATTN_TOL absolute
+                    and relative, every head, also where its k row moved
+                    a bf16 step.  Two launches are bit-equal; with the
+                    append the output is bit-equal to the step's, the
+                    rows land in the caches at pos and every other row
+                    is unchanged.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -57,6 +65,43 @@ def _launches(name, fn):
     torch.cuda.synchronize()
     assert ops.LAUNCHES[name] == before + 1, f"{name} did not launch once"
     return out
+
+
+def cuda_time(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean ms per call of fn() on the card: CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls.
+
+    ``queued`` (a wrapper's ``device_ms``): the calls are queued behind a
+    spin on the card (torch.cuda._sleep) at least twice as long as the
+    host took to issue them, so the events time the card's work and not
+    the host's launch rate; it is checked that the host had issued every
+    call before the first one started."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    spin = 0
+    if queued:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        spin = int(2 * (time.perf_counter() - t0) * 2e9) + 10**6  # <= 2 GHz
+    for _ in range(4):
+        torch.cuda.synchronize()
+        if spin:
+            torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not spin or not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        spin *= 4
+    raise AssertionError("cuda_time: the card started before the host had "
+                         "queued the timed calls")
 
 
 def delta_case(M, K, N, signed, seed, device):
@@ -275,7 +320,25 @@ def check_rows(got: torch.Tensor, want: torch.Tensor) -> int:
     return flips
 
 
+def attention_edge_positions(S: int, B: int, Kv: int, hd: int,
+                             sms: int = ops.ATTN_SMS) -> list:
+    """Cache positions that probe the kernel's split of S positions
+    (ops.attention_chunks, tiles of ops.attention_tile_rows within a
+    chunk): 0, S-1 and both sides of every chunk and tile edge."""
+    chunks, rows = ops.attention_chunks(S, B, Kv, sms)
+    sr = ops.attention_tile_rows(rows, hd)
+    edges = [e for c in range(chunks) for t in range(0, rows, sr)
+             for e in (c * rows + t - 1, c * rows + t) if 0 < c * rows + t]
+    return sorted({0, S - 1, *(e for e in edges if e < S)})
+
+
 def check_attention(case) -> dict:
+    """The kernel's step (no append) against its plain version: every
+    head within ATTN_TOL of the plain output, also where the kernel's k
+    row of a (slot, kv head) landed a bf16 step from the plain version's
+    (check_rows allows it); two launches bit-equal.  Returns, beside the
+    error, the (slot, kv head) pairs whose k row moved (``flipped``) and
+    the max error over their heads (``flipped_err``)."""
     out, kr, vr = _launches("decode_attention",
                             lambda: ops.decode_attention_step(**case))
     w_out, w_kr, w_vr = ref.decode_attention_step_ref(**case)
@@ -284,8 +347,56 @@ def check_attention(case) -> dict:
     err = float((out - w_out).abs().max())
     assert torch.allclose(out, w_out, rtol=ATTN_TOL, atol=ATTN_TOL), \
         f"decode_attention: max |kernel - plain| = {err}"
+    again = ops.decode_attention_step(**case)
+    assert all(torch.equal(x, y) for x, y in zip((out, kr, vr), again)), \
+        "decode_attention: two launches differ"
+    moved = (kr != w_kr).any(-1)                             # (B, Kv)
+    heads = moved.repeat_interleave(out.shape[1] // kr.shape[1], dim=1)
+    flipped_err = float((out - w_out)[heads].abs().max()) \
+        if bool(moved.any()) else 0.0
     return {"max_abs_err": err, "row_flips": flips,
-            "row_entries": kr.numel()}
+            "row_entries": kr.numel(), "flipped": moved.nonzero().tolist(),
+            "flipped_err": flipped_err}
+
+
+def check_attention_append(case) -> dict:
+    """ops.decode_attention (the kernel with the append) on copies of the
+    case's caches: the output bit-equal to the step's, row pos of each
+    cache the plain version's row (v bit-equal, k by check_rows), every
+    other row bit-equal to its value before the call."""
+    q, k, v = case["q"], case["k_new"], case["v_new"]
+    B, H, hd = q.shape
+    Kv = k.shape[1]
+    kc, vc = case["k_cache"].clone(), case["v_cache"].clone()
+    out, ck, cv = _launches("decode_attention", lambda: ops.decode_attention(
+        q[:, None], k[:, None], v[:, None], kc, vc, case["pos"], n_heads=H,
+        n_kv=Kv, head_dim=hd, rope_theta=case["theta"],
+        window=case["window"], q_gain=case["q_gain"],
+        k_gain=case["k_gain"]))
+    assert ck is kc and cv is vc, "decode_attention: not in place"
+    step = ops.decode_attention_step(**case)[0]
+    assert torch.equal(out.reshape(B, H, hd), step), \
+        "decode_attention: the append's output differs from the step's"
+    _, w_kr, w_vr = ref.decode_attention_step_ref(**case)
+    flips = _appended_rows(kc, vc, case["k_cache"], case["v_cache"],
+                           case["pos"], w_kr, w_vr)
+    return {"row_flips": flips, "row_entries": w_kr.numel()}
+
+
+def _appended_rows(kc, vc, k_before, v_before, pos, w_kr, w_vr) -> int:
+    """Hold caches after an append against their copies from before it:
+    row pos[b] of slot b is the plain version's row (v bit-equal, k by
+    check_rows), every other row bit-equal; returns the k-row flips."""
+    B, S = kc.shape[:2]
+    p = pos.reshape(-1).expand(B).long()
+    b = torch.arange(B, device=p.device)
+    other = torch.ones((B, S), dtype=torch.bool, device=p.device)
+    other[b, p] = False
+    for new, old in ((kc, k_before), (vc, v_before)):
+        assert torch.equal(new[other], old[other]), \
+            "decode_attention: the append changed another cache row"
+    assert torch.equal(vc[b, p], w_vr), "decode_attention: v rows differ"
+    return check_rows(kc[b, p], w_kr)
 
 
 def _cpu(t):
@@ -293,14 +404,15 @@ def _cpu(t):
 
 
 def attention_on_rows(args, kr, vr, theta, window):
-    """The plain decode attention on the CPU, attending to the given bf16
-    rows (the card's): qk-norm and rope of q, the rows appended at pos,
-    masked GQA attention.  args: the CPU copies of decode_attention_step's
-    (q, k_new, v_new, q_gain, k_gain, k_cache, v_cache, pos)."""
+    """The plain decode attention, attending to the given bf16 rows (the
+    card's): qk-norm and rope of q, the rows appended at pos, masked GQA
+    attention.  args: decode_attention_step's (q, k_new, v_new, q_gain,
+    k_gain, k_cache, v_cache, pos), all on the rows' device."""
     q, _, _, q_gain, _, k_cache, v_cache, pos = args
     B, H, hd = q.shape
     pos = pos.reshape(-1).expand(B)
-    positions = pos[:, None] + torch.arange(1, dtype=torch.int32)
+    positions = pos[:, None] + torch.arange(1, dtype=torch.int32,
+                                            device=pos.device)
     qr = q[:, None]
     if q_gain is not None:
         qr = ref._rmsnorm(qr, q_gain)
@@ -320,13 +432,15 @@ class CpuShadow:
     this module's tolerances; ``stats`` counts the launches and the gaps.
     The caller's arguments reach the kernels unchanged.
 
-    The attention output is held against the CPU's attention over the
-    card's own rows (a k row one bf16 step away moves a sharp softmax far
+    The attention op appends on the card: the card's rows are read from
+    its caches at pos, and every other row is held equal to a copy taken
+    before the call.  The attention output is held against the CPU's
+    attention over the card's own rows (a k row one bf16 step away moves a sharp softmax far
     more than float order does; the rows are held by check_rows), with
     the absolute part of ATTN_TOL scaled by max|v|, since the output is a
     convex combination of v rows."""
 
-    SERVE = ("delta_matmul", "fused_qdot_packed", "decode_attention_step")
+    SERVE = ("delta_matmul", "fused_qdot_packed", "decode_attention")
     TRAIN = ("lut_matmul", "residual_matmul")
 
     def __init__(self, names=SERVE):
@@ -337,7 +451,7 @@ class CpuShadow:
     def __enter__(self):
         shadows = {"delta_matmul": self._delta,
                    "fused_qdot_packed": self._fused,
-                   "decode_attention_step": self._attention,
+                   "decode_attention": self._attention,
                    "lut_matmul": self._lut,
                    "residual_matmul": self._residual}
         self.saved = {n: getattr(ops, n) for n in self.names}
@@ -400,19 +514,27 @@ class CpuShadow:
         self._note("fused_qdot_packed", err)
         return res if return_int else res[0]
 
-    def _attention(self, q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
-                   pos, *, theta=10000.0, window=None):
-        res = self.saved["decode_attention_step"](
-            q, k_new, v_new, q_gain, k_gain, k_cache, v_cache, pos,
-            theta=theta, window=window)
-        out, kr, vr = (t.cpu() for t in res)
-        args = [_cpu(t) for t in (q, k_new, v_new, q_gain, k_gain, k_cache,
-                                  v_cache, pos)]
+    def _attention(self, q, k, v, k_cache, v_cache, idx, *, n_heads,
+                   n_kv, head_dim, rope_theta=10000.0, window=None,
+                   q_gain=None, k_gain=None):
+        B = q.shape[0]
+        args = [_cpu(t) for t in (
+            q.reshape(B, n_heads, head_dim), k.reshape(B, n_kv, head_dim),
+            v.reshape(B, n_kv, head_dim), q_gain, k_gain, k_cache, v_cache,
+            idx)]                     # the caches copied before the call
+        res = self.saved["decode_attention"](
+            q, k, v, k_cache, v_cache, idx, n_heads=n_heads, n_kv=n_kv,
+            head_dim=head_dim, rope_theta=rope_theta, window=window,
+            q_gain=q_gain, k_gain=k_gain)
         _, w_kr, w_vr = ref.decode_attention_step_ref(
-            *args, theta=theta, window=window)
-        assert torch.equal(vr, w_vr), "decode_attention: v row card != cpu"
-        flips = check_rows(kr, w_kr)
-        w_out = attention_on_rows(args, kr, vr, theta, window)
+            *args, theta=rope_theta, window=window)
+        kc, vc = k_cache.cpu(), v_cache.cpu()
+        flips = _appended_rows(kc, vc, args[5], args[6], args[7], w_kr, w_vr)
+        pos = args[7].reshape(-1).expand(B).long()
+        b = torch.arange(B)
+        kr, vr = kc[b, pos], vc[b, pos]      # the card's rows
+        out = res[0].cpu().reshape(B, n_heads, head_dim)
+        w_out = attention_on_rows(args, kr, vr, rope_theta, window)
         vmax = max(float(args[6].float().abs().max()),
                    float(vr.float().abs().max()))
         err = float((out - w_out).abs().max())
@@ -420,5 +542,5 @@ class CpuShadow:
                               atol=ATTN_TOL * vmax), \
             f"decode_attention: max |card - cpu| {err:.3e} (max |v| " \
             f"{vmax:.3e})"
-        self._note("decode_attention_step", err, flips, kr.numel())
+        self._note("decode_attention", err, flips, kr.numel())
         return res

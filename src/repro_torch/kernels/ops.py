@@ -9,7 +9,9 @@ Five kernels, each written by hand in CUDA C++ for Hopper
                     row) + the delta product + the dequant epilogue
                     (split-K over every SM for M <= 4)
   decode_attention  qk-norm + rope + bf16 row rounding + masked GQA
-                    attention with an online softmax, one decode step
+                    attention, one decode step, split over the cache
+                    positions (ops.attention_chunks), the cache append
+                    inside the kernel
   lut_matmul        product-LUT gather sum (16-bit table in shared memory)
   residual_matmul   exact product + rank-r error correction, float32, as
                     a gather sum over the correction table C = F G
@@ -522,16 +524,132 @@ def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
 # decode_attention
 # ---------------------------------------------------------------------------
 
+ATTN_SMS = 132            # SMs of an H100 SXM (the wrapper reads the card's)
+ATTN_BLOCKS_PER_SM = 3    # blocks a split aims at, per SM
+ATTN_MIN_ROWS = 16        # fewest positions a chunk gets to fill the SMs
+ATTN_MAX_CHUNKS = 16      # chunks of one (kv head, slot): one cluster
+ATTN_STAGE_BYTES = 32768  # a tile's K and V rows, staged in shared memory
+
+# per-device values of the attention wrapper: SM counts, rope frequencies
+_ATTN_CACHE: dict = {}
+
+
+def attention_tile_rows(rows: int, hd: int) -> int:
+    """Cache positions of one tile of the decode_attention kernel, whose
+    chunks of ``rows`` positions are read tile by tile at head_dim
+    ``hd``: the tile's bf16 K and V rows in ATTN_STAGE_BYTES of shared
+    memory, at most 256 and at most ``rows``.  The launcher takes it as
+    it is and refuses a tile whose shared memory does not fit."""
+    return min(rows, 256, ATTN_STAGE_BYTES // (4 * hd))
+
+
+def attention_chunks(S_max: int, B: int, Kv: int, sms: int = ATTN_SMS):
+    """(chunks, rows): the decode_attention kernel's split of the S_max
+    cache positions into ``chunks`` chunks of ``rows`` consecutive
+    positions, one block per (chunk, kv head, slot) and one cluster of
+    ``chunks`` blocks per (kv head, slot).  As many chunks as keep the
+    B*Kv pairs' blocks within ATTN_BLOCKS_PER_SM per SM (so that they run
+    in one wave), but none under ATTN_MIN_ROWS positions and at most
+    ATTN_MAX_CHUNKS; the last chunk is never empty.  So the blocks number
+    at most max(B*Kv, ATTN_BLOCKS_PER_SM*sms)."""
+    pairs = B * Kv
+    n = max(1, min(ATTN_MAX_CHUNKS, S_max // ATTN_MIN_ROWS,
+                   ATTN_BLOCKS_PER_SM * sms // pairs))
+    rows = -(-S_max // n)
+    return -(-S_max // rows), rows
+
+
+def _sm_count(device) -> int:
+    """The card's multiprocessor count (cached per device)."""
+    key = ("sms", str(device))
+    if key not in _ATTN_CACHE:
+        _ATTN_CACHE[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _ATTN_CACHE[key]
+
+
+def _rope_table(theta: float, hd: int, device) -> torch.Tensor:
+    """ref.rope_freqs on ``device`` (cached): the kernel reads rope's
+    frequencies as the plain version computes them there."""
+    key = ("rope", float(theta), hd, str(device))
+    if key not in _ATTN_CACHE:
+        _ATTN_CACHE[key] = ref.rope_freqs(theta, hd // 2, device)
+    return _ATTN_CACHE[key]
+
+
+def _attention_launch(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
+                      pos, theta, window, row_out):
+    """Check the operands and launch the decode_attention kernel; returns
+    out (B, H, hd) f32.  ``row_out`` None: the new k/v rows go into the
+    caches at pos (the append); else a pair of (B, Kv, hd) bf16 row
+    outputs, and the caches are only read."""
+    name = "decode_attention"
+    # plain ifs: a message is formatted only when a check fails (28 calls
+    # a decode step and a calibration token, each a few-µs kernel)
+    B, H, hd = q.shape
+    Kv = k_new.shape[1]
+    S = k_cache.shape[1]
+    if not (tuple(k_new.shape) == (B, Kv, hd) == tuple(v_new.shape)):
+        raise ValueError(f"{name}: k/v rows must be ({B}, {Kv}, {hd})")
+    if not (tuple(k_cache.shape) == (B, S, Kv, hd) == tuple(v_cache.shape)):
+        raise ValueError(f"{name}: caches must be ({B}, S_max, {Kv}, {hd})")
+    if not (hd % 2 == 0 and 0 < hd <= 256):
+        raise ValueError(f"{name}: head_dim {hd} must be even and <= 256")
+    if not (Kv > 0 and H % Kv == 0 and H // Kv <= 8):
+        raise ValueError(f"{name}: query group H/Kv = {H}/{Kv} must be a "
+                         f"whole number <= 8")
+    for t in (q, k_new, v_new):
+        if not (t.dtype == torch.float32 and t.stride(2) == 1
+                and t.stride(1) == hd):
+            raise ValueError(f"{name}: q/k/v must be float32 with packed "
+                             f"heads")
+    if not (k_cache.dtype == torch.bfloat16 == v_cache.dtype):
+        raise ValueError(f"{name}: the caches must be bfloat16")
+    if not (pos.dtype == torch.int32 and pos.numel() in (1, B)):
+        raise ValueError(f"{name}: pos must be int32, scalar or ({B},)")
+    qk_norm = q_gain is not None
+    gains = (q_gain, k_gain) if qk_norm else ()
+    for g in gains:
+        if not (g.dtype == torch.float32 and g.numel() == hd):
+            raise ValueError(f"{name}: gains must be float32 ({hd},)")
+    _check_cuda(name, k_cache, v_cache, pos, *gains)
+    dev = k_cache.device
+    for t in (q, k_new, v_new):
+        if t.device != dev:
+            raise ValueError(f"{name}: mixed devices")
+    chunks, n_rows = attention_chunks(S, B, Kv, _sm_count(dev))
+    freqs = _rope_table(theta, hd, dev) if theta else None
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
+    from ._build import kernel
+    err = kernel(name)(
+        q.data_ptr(), q.stride(0), k_new.data_ptr(), k_new.stride(0),
+        v_new.data_ptr(), v_new.stride(0),
+        q_gain.data_ptr() if qk_norm else None,
+        k_gain.data_ptr() if qk_norm else None,
+        None if freqs is None else freqs.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        0 if pos.numel() == 1 else 1, out.data_ptr(),
+        None if row_out is None else row_out[0].data_ptr(),
+        None if row_out is None else row_out[1].data_ptr(),
+        B, H, Kv, S, hd, chunks, n_rows, attention_tile_rows(n_rows, hd),
+        int(window or 0), int(qk_norm),
+        int(row_out is None), _stream())
+    _raise_cuda(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
 def decode_attention_step(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
                           pos, *, theta: float = 10000.0, window=None):
-    """One fused decode-attention step over a batch of cache slots.
+    """One fused decode-attention step over a batch of cache slots,
+    leaving the caches untouched.
 
     q: (B, H, hd) f32 pre-norm pre-rope; k_new/v_new: (B, Kv, hd) f32
     (batch rows may be strided, as slices of a merged qkv projection);
     q_gain/k_gain: (hd,) qk-norm gains, or None for no qk-norm;
     k_cache/v_cache: (B, S_max, Kv, hd) before the append; pos: scalar
-    or (B,) int32 cache positions.  Returns (out (B, H, hd) f32, k_row,
-    v_row (B, Kv, hd) in the cache dtype).
+    or (B,) int32 cache positions, each < S_max.  Returns (out (B, H, hd)
+    f32, k_row, v_row (B, Kv, hd) in the cache dtype).
     """
     if q.device.type == "cpu":
         return ref.decode_attention_step_ref(
@@ -539,50 +657,12 @@ def decode_attention_step(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
             theta=theta, window=window)
     if q.device.type != "cuda":
         raise _wrong_device("decode_attention", q)
-    name = "decode_attention"
-    B, H, hd = q.shape
+    B, _, hd = q.shape
     Kv = k_new.shape[1]
-    S = k_cache.shape[1]
-    _check(tuple(k_new.shape) == (B, Kv, hd) == tuple(v_new.shape),
-           f"{name}: k/v rows must be ({B}, {Kv}, {hd})")
-    _check(tuple(k_cache.shape) == (B, S, Kv, hd) == tuple(v_cache.shape),
-           f"{name}: caches must be ({B}, S_max, {Kv}, {hd})")
-    _check(hd % 2 == 0 and 0 < hd <= 256,
-           f"{name}: head_dim {hd} must be even and <= 256")
-    _check(Kv > 0 and H % Kv == 0 and H // Kv <= 8,
-           f"{name}: query group H/Kv = {H}/{Kv} must be a whole number "
-           f"<= 8")
-    for t in (q, k_new, v_new):
-        _check(t.dtype == torch.float32 and t.stride(2) == 1
-               and t.stride(1) == hd,
-               f"{name}: q/k/v must be float32 with packed heads")
-    _check(k_cache.dtype == torch.bfloat16 == v_cache.dtype,
-           f"{name}: the caches must be bfloat16")
-    _check(pos.dtype == torch.int32 and pos.numel() in (1, B),
-           f"{name}: pos must be int32, scalar or ({B},)")
-    qk_norm = q_gain is not None
-    gains = (q_gain, k_gain) if qk_norm else ()
-    for g in gains:
-        _check(g.dtype == torch.float32 and g.numel() == hd,
-               f"{name}: gains must be float32 ({hd},)")
-    _check_cuda(name, k_cache, v_cache, pos, *gains)
-    for t in (q, k_new, v_new):
-        _check(t.device == k_cache.device, f"{name}: mixed devices")
-    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
     krow = torch.empty((B, Kv, hd), dtype=k_cache.dtype, device=q.device)
     vrow = torch.empty((B, Kv, hd), dtype=v_cache.dtype, device=q.device)
-    from ._build import kernel
-    err = kernel(name)(
-        q.data_ptr(), q.stride(0), k_new.data_ptr(), k_new.stride(0),
-        v_new.data_ptr(), v_new.stride(0),
-        q_gain.data_ptr() if qk_norm else None,
-        k_gain.data_ptr() if qk_norm else None,
-        k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        0 if pos.numel() == 1 else 1, out.data_ptr(), krow.data_ptr(),
-        vrow.data_ptr(), B, H, Kv, S, hd, float(theta or 0.0),
-        int(window or 0), int(qk_norm), _stream())
-    _raise_cuda(name, err)
-    LAUNCHES[name] += 1
+    out = _attention_launch(q, k_new, v_new, q_gain, k_gain, k_cache,
+                            v_cache, pos, theta, window, (krow, vrow))
     return out, krow, vrow
 
 
@@ -590,18 +670,24 @@ def decode_attention(q, k, v, k_cache, v_cache, idx, *, n_heads: int,
                      n_kv: int, head_dim: int, rope_theta: float = 10000.0,
                      window=None, q_gain=None, k_gain=None):
     """The decode-step attention/cache op: qk-norm + rope at the slot's
-    cache position + masked single-query GQA attention (the kernel),
-    then the append of the new k/v rows to the caches, IN PLACE.
+    cache position + masked single-query GQA attention, and the append
+    of the new k/v rows to the caches, IN PLACE.  On the card one kernel
+    launch does all of it; on the CPU the plain step, then
+    ``ref.write_rows``.
 
     q: (B, 1, n_heads, hd) pre-norm pre-rope; k/v: (B, 1, n_kv, hd);
-    idx: scalar int32 (uniform decode) or (B,) per-slot positions.
-    Returns (out (B, 1, n_heads*hd) f32, k_cache, v_cache).
+    idx: scalar int32 (uniform decode) or (B,) per-slot positions, each
+    < S_max.  Returns (out (B, 1, n_heads*hd) f32, k_cache, v_cache).
     """
     B = q.shape[0]
-    out, krow, vrow = decode_attention_step(
-        q.reshape(B, n_heads, head_dim), k.reshape(B, n_kv, head_dim),
-        v.reshape(B, n_kv, head_dim), q_gain, k_gain, k_cache, v_cache,
-        idx, theta=rope_theta, window=window)
-    ref.write_rows(k_cache, krow[:, None], idx)
-    ref.write_rows(v_cache, vrow[:, None], idx)
+    args = (q.reshape(B, n_heads, head_dim), k.reshape(B, n_kv, head_dim),
+            v.reshape(B, n_kv, head_dim), q_gain, k_gain, k_cache, v_cache,
+            idx)
+    if q.device.type == "cuda":
+        out = _attention_launch(*args, rope_theta, window, None)
+    else:
+        out, krow, vrow = decode_attention_step(*args, theta=rope_theta,
+                                                window=window)
+        ref.write_rows(k_cache, krow[:, None], idx)
+        ref.write_rows(v_cache, vrow[:, None], idx)
     return out.reshape(B, 1, n_heads * head_dim), k_cache, v_cache

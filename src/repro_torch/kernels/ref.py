@@ -207,11 +207,17 @@ def _rmsnorm(x, gamma, eps: float = 1e-6):
     return (x * torch.rsqrt(var + eps)) * gamma
 
 
+def rope_freqs(theta: float, half: int, device) -> torch.Tensor:
+    """Rope's frequencies theta^(-j/half), j < half, f32 on ``device``, as
+    models.layers.rope computes them."""
+    return theta ** true_div(-torch.arange(0, half, dtype=torch.float32,
+                                           device=device), half)
+
+
 def _rope(x, positions, theta: float):
     """Mirror of models.layers.rope. x: (B, S, H, D)."""
     half = x.shape[-1] // 2
-    freqs = theta ** true_div(-torch.arange(0, half, dtype=torch.float32,
-                                            device=x.device), half)
+    freqs = rope_freqs(theta, half, x.device)
     pos = positions.float()
     if pos.ndim == 1:
         pos = pos[None, :]

@@ -136,6 +136,84 @@ def test_attention_kernel_matches_plain(cuda, per_slot, window, hd,
         window=window, qk_norm=qk_norm))
 
 
+ATTN_EDGE_SHAPES = [   # B, S_max, H, Kv, hd: the path's, ragged, long
+    (4, 80, 16, 8, 128), (3, 21, 8, 4, 64), (2, 700, 4, 2, 256),
+    (4, 4096, 16, 8, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,Kv,hd", ATTN_EDGE_SHAPES)
+@pytest.mark.parametrize("window", [None, 20])
+def test_attention_kernel_at_chunk_edges(cuda, B, S, H, Kv, hd, window):
+    """Per-slot positions at 0, S_max-1 and on both sides of every edge of
+    the kernel's chunks and of the tiles within them (ops.attention_chunks
+    with the card's SM count), B slots a launch; a window of 20 crosses
+    chunk edges.  Two launches bit-equal (check_attention)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    edges = check.attention_edge_positions(S, B, Kv, hd, sms)
+    case = check.attention_case(B, S, H, Kv, hd, S, cuda, window=window)
+    for i in range(0, len(edges), B):
+        pos = (edges[i:i + B] + [S - 1] * B)[:B]
+        check.check_attention(dict(case, pos=torch.tensor(
+            pos, dtype=torch.int32, device=cuda)))
+
+
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256, 6, 90])
+@pytest.mark.parametrize("S", [1, 33, 300])
+def test_attention_kernel_groups_and_head_dims(cuda, group, hd, S):
+    """B=1 at every query group the kernel takes and head dims on the
+    16-byte path (hd % 8 == 0) and the 4-byte one (6, 90), from a cache
+    of one position to several chunks."""
+    Kv = 2
+    for pos in sorted({0, S // 2, S - 1}):
+        check.check_attention(check.attention_case(
+            1, S, group * Kv, Kv, hd, group + hd + S, cuda, pos=[pos]))
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("B,S,hd", [(4, 80, 128), (3, 21, 16), (2, 300, 64),
+                                    (4, 4096, 128)])
+def test_attention_append_path(cuda, per_slot, window, B, S, hd):
+    """ops.decode_attention, the kernel with the append: the output
+    bit-equal to the step's, row pos of each cache the plain version's
+    row (v bit-equal, k within the row tolerance), every other row
+    bit-equal to its value before the call."""
+    check.check_attention_append(check.attention_case(
+        B, S, 16, 8, hd, B + S + hd, cuda, per_slot=per_slot,
+        window=window))
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 40, 100, 129, 1000, 4096])
+def test_attention_kernel_cluster_sizes_and_tiles(cuda, S):
+    """One (kv head, slot) pair, so the split takes up to 16 chunks, one
+    cluster of that many blocks (1, 2, 5, 12 and 16 here); past 16 chunks
+    of 64 rows a chunk is read in several tiles.  Positions at 0, S-1 and
+    every chunk and tile edge, and a window that starts past a chunk's
+    first tile."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    edges = check.attention_edge_positions(S, 1, 1, 128, sms)
+    case = check.attention_case(1, S, 2, 1, 128, S, cuda)
+    for window in (None, 20):
+        for pos in edges:
+            check.check_attention(dict(case, window=window, pos=torch.tensor(
+                [pos], dtype=torch.int32, device=cuda)))
+
+
+@pytest.mark.parametrize("tile", ["past the chunk", "past 48 KiB"])
+def test_attention_launcher_refuses_a_tile_it_cannot_take(cuda, monkeypatch,
+                                                          tile):
+    """The wrapper decides the tile (ops.attention_tile_rows); the
+    launcher refuses one longer than a chunk, or one whose shared memory
+    exceeds 48 KiB (64 rows at hd 256: 64 KiB of K and V)."""
+    bad = (lambda rows, hd: rows + 1) if tile == "past the chunk" else \
+        (lambda rows, hd: 64)
+    monkeypatch.setattr(ops, "attention_tile_rows", bad)
+    case = check.attention_case(1, 4096, 2, 1, 256, 0, cuda)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ops.decode_attention_step(**case)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     case = check.delta_case(4, 64, 32, False, 0, cuda)
     with pytest.raises(ValueError, match="int16"):
@@ -149,6 +227,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int8"):
         ops.fused_qdot_packed(f["x"], f["qw"].to(torch.uint8), f["dlut"],
                               f["scal"], f["ntab"], f["comp_r"], signed=True)
+    with pytest.raises(ValueError, match="head_dim 7 must be even"):
+        ops.decode_attention_step(**check.attention_case(2, 9, 4, 2, 7, 0,
+                                                         cuda))
+    a = check.attention_case(2, 9, 4, 2, 16, 0, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.decode_attention_step(**dict(a, k_cache=a["k_cache"].float()))
+    with pytest.raises(ValueError, match="int32"):
+        ops.decode_attention_step(**dict(a, pos=a["pos"].long()))
 
 
 @pytest.mark.parametrize("mode", ["asym_u8", "sym_i8"])

@@ -26,7 +26,7 @@ from repro.quant import linear as rlin
 from repro_torch.core import lut as tlut
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.check import check_rows
+from repro_torch.kernels.check import attention_edge_positions, check_rows
 
 MODES = [("asym_u8", False), ("sym_i8", True)]
 
@@ -151,14 +151,18 @@ def _attn_inputs(B, S_max, H, Kv, hd, seed, per_slot):
     return q, k, v, kc, vc, gq, gk, idx
 
 
-@pytest.mark.parametrize("per_slot", [False, True])
-@pytest.mark.parametrize("window", [None, 3])
-@pytest.mark.parametrize("qk_norm", [True, False])
-def test_decode_attention_plain_matches_reference(per_slot, window,
-                                                  qk_norm):
-    B, S_max, H, Kv, hd = 3, 12, 4, 2, 16
-    q, k, v, kc, vc, gq, gk, idx = _attn_inputs(B, S_max, H, Kv, hd,
-                                                7 + per_slot, per_slot)
+def _attn_matches_reference(B, S_max, H, Kv, hd, seed, per_slot, window,
+                            qk_norm, idx=None, own_rows=False):
+    """ops.decode_attention on the CPU (the plain step + the append)
+    against the reference's decode_attention_ref, caches included;
+    ``idx`` overrides the drawn positions.  ``own_rows``: the output is
+    held against the reference's attention over the port's appended rows
+    (its q normed and roped by the reference), so that a k row one bf16
+    step away (allowed by check_rows) does not move the reference's
+    softmax under the output's tolerance."""
+    q, k, v, kc, vc, gq, gk, drawn = _attn_inputs(B, S_max, H, Kv, hd, seed,
+                                                  per_slot)
+    idx = drawn if idx is None else np.asarray(idx, np.int32)
     kw = dict(n_heads=H, n_kv=Kv, head_dim=hd, rope_theta=10000.0,
               window=window)
     gains = dict(q_gain=gq, k_gain=gk) if qk_norm else {}
@@ -181,8 +185,83 @@ def test_decode_attention_plain_matches_reference(per_slot, window,
     np.testing.assert_array_equal(cv.float().numpy(),
                                   np.asarray(jnp.asarray(cv_r, jnp.float32)))
     check_rows(_t(got_k), _t(ck_r))
+    if own_rows:
+        pos = np.broadcast_to(idx, (B,))
+        qn = jnp.asarray(q)
+        if qk_norm:
+            qn = rref._rmsnorm(qn, jnp.asarray(gq))
+        qn = rref._rope(qn, jnp.asarray(pos)[:, None], 10000.0)
+        rows = [jnp.asarray(c.float().numpy()[np.arange(B), pos][:, None])
+                for c in (ck, cv)]
+        out_r, _, _ = rref.decode_attention_ref(
+            qn, *rows, jnp.asarray(kc, jnp.bfloat16),
+            jnp.asarray(vc, jnp.bfloat16), jnp.asarray(idx),
+            **dict(kw, rope_theta=0.0))
     np.testing.assert_allclose(out.numpy(), np.asarray(out_r), rtol=2e-5,
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("qk_norm", [True, False])
+def test_decode_attention_plain_matches_reference(per_slot, window,
+                                                  qk_norm):
+    _attn_matches_reference(3, 12, 4, 2, 16, 7 + per_slot, per_slot, window,
+                            qk_norm)
+
+
+@pytest.mark.parametrize("S_max,Kv", [(12, 2), (40, 1), (80, 8)])
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("qk_norm", [True, False])
+def test_decode_attention_plain_at_chunk_edges(S_max, Kv, window, qk_norm):
+    """Per-slot positions at 0, S_max-1 and both sides of every edge of
+    the kernel's chunks (ops.attention_chunks at B=4, hd=16), four slots
+    a call, caches included (the output over the port's own rows: a k
+    row can land one bf16 step from the reference's); a window of 9
+    crosses the edges."""
+    B, hd = 4, 16
+    edges = attention_edge_positions(S_max, B, Kv, hd)
+    assert edges[0] == 0 and edges[-1] == S_max - 1
+    for i in range(0, len(edges), B):
+        idx = (edges[i:i + B] + [S_max - 1] * B)[:B]
+        _attn_matches_reference(B, S_max, 2 * Kv, Kv, hd, S_max + i, True,
+                                window, qk_norm, idx=idx, own_rows=True)
+
+
+@pytest.mark.parametrize("S_max", [1, 2, 21, 80, 4096])
+@pytest.mark.parametrize("pairs", [1, 8, 32, 256])
+def test_attention_chunks_cover_every_position_once(S_max, pairs):
+    """The kernel's split of S_max positions over B*Kv = ``pairs`` (kv
+    head, slot) pairs: consecutive chunks of ``rows`` positions cover
+    0..S_max-1 exactly once (no empty chunk), within the merge's bound
+    on chunks and the stated cap on blocks."""
+    for sms in (ops.ATTN_SMS, 114):
+        chunks, rows = ops.attention_chunks(S_max, pairs, 1, sms)
+        cover = np.concatenate([np.arange(c * rows, min((c + 1) * rows,
+                                                        S_max))
+                                for c in range(chunks)])
+        np.testing.assert_array_equal(cover, np.arange(S_max))
+        assert (chunks - 1) * rows < S_max <= chunks * rows
+        assert 1 <= chunks <= ops.ATTN_MAX_CHUNKS
+        assert chunks == 1 or rows >= ops.ATTN_MIN_ROWS
+        assert chunks * pairs <= max(pairs, ops.ATTN_BLOCKS_PER_SM * sms)
+        # B and Kv enter only as their product
+        assert ops.attention_chunks(S_max, 1, pairs, sms) == (chunks, rows)
+
+
+@pytest.mark.parametrize("hd", [2, 16, 90, 128, 256])
+def test_attention_tile_rows_within_a_chunk_and_the_stage(hd):
+    """The tile the wrapper passes the decode_attention launcher: at
+    least one position, at most a chunk's rows and 256, its bf16 K and V
+    rows within ATTN_STAGE_BYTES."""
+    for S_max in (1, 21, 80, 700, 4096):
+        for pairs in (1, 32):
+            _, rows = ops.attention_chunks(S_max, pairs, 1)
+            tile = ops.attention_tile_rows(rows, hd)
+            assert 1 <= tile <= min(rows, 256)
+            assert 4 * tile * hd <= ops.ATTN_STAGE_BYTES
+            assert tile == rows or 4 * (tile + 1) * hd > \
+                ops.ATTN_STAGE_BYTES or tile == 256
 
 
 @pytest.mark.parametrize("signed", [False, True])
