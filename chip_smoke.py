@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-card and check them.
+"""Drive the PyTorch/CUDA port's serving, training and design-plan paths
+on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,12 @@ error and carries on:
                operand patterns; decode_attention at the path's cases,
                at long context (S_max 4096), on both sides of every chunk
                edge, with a window across one, two launches bit-equal,
-               and with the append (the caches' other rows unchanged)
+               and with the append (the caches' other rows unchanged);
+               the unsigned 'initial' through its biased uint16 table
+               (the 65,536-pair sweep through delta_matmul and fused_qdot
+               on both schedules, and the path's shapes); a 3-table plan
+               bank, each row bit-equal to the table alone; delta_matmul
+               at the planned QAT step's M = 512
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
@@ -27,7 +32,9 @@ error and carries on:
                held against its plain version on the CPU from the same
                inputs (the attention's appended rows read from the card's
                caches, every other row held to a copy from before the
-               call); the free-running CPU run reported beside it
+               call); the free-running CPU run reported beside it; and
+               --design initial asym_u8 uncalibrated ('delta') and
+               calibrated ('fused'), held launch by launch
   6. train     full-width qwen3-1.7b QAT through repro_torch.launch.train,
                --batch 4 --seq 128 (M=512 rows per projection), remat on,
                2 steps each of --backend xla and residual in asym_u8 and
@@ -48,10 +55,24 @@ error and carries on:
                nvidia-smi reads beside the timing), lut_matmul on three
                operand patterns (uniform, bank-conflict-free, quantized
                normal); decode_attention with and without the append at
-               the path's shape and at long context (S_max 4096)
+               the path's shape and at long context (S_max 4096);
+               delta_matmul also at the planned QAT step's shapes
+               (M = 512, sym_i8: ``plan_qat`` in the JSON)
   9. trace     torch.profiler over full-width decode steps of the serve
                path: kernel launches per step by name, the device's busy
                share of the traced window, host-side op counts
+ 10. plans     the plan path at full width: (a) the plan CLI (python -m
+               repro_torch.calib) on the card, sym_i8, 2 train-shaped
+               calibration batches, written under build/plans; (b) its
+               heterogeneous variant (odd layers design2); (c) serve
+               --plan of (b), --calibrate 1, 4 x 64 prompt, gen 16, the
+               fused calls reading at least two distinct tables; (e) 2
+               QAT steps through (b), --batch 4 --seq 128; launch counts
+               read after each run
+ 11. plan parity  (d) a heterogeneous plan at 2 layers of full width in
+               both modes, served with every launch held against its
+               plain version on the CPU, and one QAT step through it with
+               every delta_matmul launch held likewise
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -211,7 +232,49 @@ def check_kernels(cfg, dev):
                         f"({r['max_rel_err']:.3e} of max |y|); two launches "
                         f"bit-equal")
     errs["decode_attention"] = check_attention_cases(cfg, dev)
+    check_biased_and_banks(cfg, dev)
     return errs
+
+
+def check_biased_and_banks(cfg, dev):
+    """The unsigned 'initial' through its biased uint16 table: the
+    65,536-pair sweep through delta_matmul and fused_qdot on both
+    schedules, and random operands at the path's shapes; a plan's bank
+    rows at a merged projection's shape, each bit-equal to the table
+    passed alone; and delta_matmul at the planned QAT step's M = TB*TS
+    rows, the four training projection shapes, both modes."""
+    from repro_torch.kernels import check
+    unmerged, merged = projection_shapes(cfg)
+    n = check.check_sweeps("initial", False, dev)
+    log(f"[kernels] 'initial' asym_u8, biased uint16 table: the 65,536-pair "
+        f"sweep through delta_matmul and fused_qdot, 256 rows (tile "
+        f"schedule) and 4 rows at a time (split-K), {n} launches, each "
+        f"bit-exact to its plain version and to the product table")
+    for i, (name, K, N) in enumerate(unmerged):
+        check.check_delta(check.delta_case(B, K, N, False, 600 + i, dev,
+                                           design="initial"))
+    for i, (name, K, N) in enumerate(merged):
+        for M in (B, B * P):
+            check.check_fused(check.fused_case(M, K, N, False, 610 + i, dev,
+                                               design="initial"))
+    log(f"[kernels] 'initial' asym_u8 at the path's shapes: delta_matmul "
+        f"M={B} x 7 projections, fused_qdot M={B} and {B * P} x 4 merged "
+        f"projections with compensation: bit-exact (fused output within "
+        f"FUSED_RTOL)")
+    D, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    for signed in (False, True):
+        for M in (B, B * P):
+            n = check.check_bank_rows(M, D, (H + 2 * Kv) * hd, signed, 620,
+                                      dev)
+            log(f"[kernels] bank of {check.BANK_DESIGNS} "
+                f"({'sym_i8' if signed else 'asym_u8'}), wqkv M={M}: each "
+                f"row through delta_matmul and fused_qdot bit-equal to the "
+                f"table alone and to the plain version ({n} launches)")
+        for i, (name, K, N) in enumerate(train_kinds(cfg)):
+            check.check_delta(check.delta_case(TB * TS, K, N, signed,
+                                               630 + i, dev))
+            log(f"[kernels] delta_matmul {'sym_i8' if signed else 'asym_u8'}"
+                f" {name} M={TB * TS} K={K} N={N} (planned QAT): bit-exact")
 
 
 def check_attention_cases(cfg, dev) -> float:
@@ -421,8 +484,9 @@ def serve_full_width(cfg):
     return totals
 
 
-def _serve_once(cfg, params, q, table, cal, prompts, gen, dev):
-    """prequantize -> (calibrate) -> install -> prefill -> greedy decode."""
+def _serve_once(cfg, params, q, table, cal, prompts, gen, dev, plan=None):
+    """prequantize -> (calibrate, on the fused backend) -> (plan) ->
+    install -> prefill -> greedy decode."""
     import torch
     from repro_torch import calib
     from repro_torch.models import transformer as T
@@ -430,10 +494,13 @@ def _serve_once(cfg, params, q, table, cal, prompts, gen, dev):
     from repro_torch.train import make_prefill_step, make_serve_step
     b, p = prompts.shape
     tree = prequantize_weights(params, q)
-    if table is None:
-        table = calib.calibrate_decode(tree, cfg, q, cal, gen_len=2,
-                                       device=dev)
-    tree = calib.apply_calibration(tree, table)
+    if q.backend == "fused":
+        if table is None:
+            table = calib.calibrate_decode(tree, cfg, q, cal, gen_len=2,
+                                           device=dev)
+        tree = calib.apply_calibration(tree, table)
+    if plan is not None:
+        tree = calib.apply_plan(tree, plan, q)
     tree = fuse_projections(calib.attach_comp_cols(tree, q))
     st = T.init_decode_state(cfg, b, p + gen, device=dev)
     tok, lg, st = make_prefill_step(cfg, q)(
@@ -446,6 +513,60 @@ def _serve_once(cfg, params, q, table, cal, prompts, gen, dev):
         lgs.append(lg)
     return (table, torch.cat(toks, 1).cpu(), [x.float().cpu() for x in lgs],
             {k: st["caches"][0][k].float().cpu() for k in ("k", "v")})
+
+
+def _card_params(cfg, seed):
+    """Seeded params made on the CPU, and a copy on the card."""
+    import torch
+    from repro_torch.models import transformer as T
+    params_cpu = T.init_params(torch.Generator().manual_seed(seed), cfg,
+                               device="cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to("cuda")
+    return params_cpu, to_card(params_cpu)
+
+
+def _shadow_log(tag, sh, t0):
+    for n, st in sh.stats.items():
+        assert st["calls"] > 0, f"{tag}: {n} never launched"
+        log(f"[parity] {tag} {n}: {st['calls']} launches held against "
+            f"the CPU plain version; max |err| {st['max_abs_err']:.3e}"
+            + (f"; {st['row_flips']} of {st['row_entries']} k-row "
+               f"entries one bf16 step apart" if st["row_entries"]
+               else ""))
+    log(f"[parity] {tag} card run with CPU shadows: "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def parity_initial(cfg_full):
+    """serve --design initial --quant-mode asym_u8 at 2 layers of full
+    width, uncalibrated ('delta': every projection a delta_matmul launch
+    on the biased table) and calibrated ('fused'), every launch held
+    against its plain version on the CPU."""
+    import numpy as np
+    from repro_torch.kernels import check
+    from repro_torch.quant import QuantConfig
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    _, params_gpu = _card_params(cfg, 1)
+    rng = np.random.default_rng(4)
+    cal = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
+    for backend in ("delta", "fused"):
+        q = QuantConfig(design="initial", backend=backend, mode="asym_u8",
+                        inference=True)
+        names = (check.CpuShadow.SERVE if backend == "fused"
+                 else ("delta_matmul", "decode_attention"))
+        t0 = time.perf_counter()
+        with check.CpuShadow(names) as sh:
+            _, ids, _, _ = _serve_once(cfg, params_gpu, q, None, cal,
+                                       prompts, 3, "cuda")
+        _shadow_log(f"initial asym_u8 {backend}", sh, t0)
+        log(f"[parity] initial asym_u8 {backend}: card ids {ids.tolist()}")
 
 
 def parity_two_layers(cfg_full):
@@ -462,21 +583,11 @@ def parity_two_layers(cfg_full):
     import numpy as np
     import torch
     from repro_torch.kernels import check
-    from repro_torch.models import transformer as T
     from repro_torch.quant import QuantConfig
     cfg = dataclasses.replace(cfg_full, n_layers=2)
     b, p, g = 2, 8, 4
     torch.set_num_threads(os.cpu_count() or 1)
-    params_cpu = T.init_params(torch.Generator().manual_seed(1), cfg,
-                               device="cpu")
-
-    def to_card(tree):
-        if isinstance(tree, dict):
-            return {k: to_card(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_card(v) for v in tree]
-        return tree.to("cuda")
-    params_gpu = to_card(params_cpu)
+    params_cpu, params_gpu = _card_params(cfg, 1)
     rng = np.random.default_rng(3)
     cal = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
     prompts = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
@@ -487,15 +598,7 @@ def parity_two_layers(cfg_full):
         with check.CpuShadow() as sh:
             table, ids_g, lg_g, c_g = _serve_once(cfg, params_gpu, q, None,
                                                   cal, prompts, g, "cuda")
-        for n, st in sh.stats.items():
-            assert st["calls"] > 0, f"{n} never launched"
-            log(f"[parity] {mode} {n}: {st['calls']} launches held against "
-                f"the CPU plain version; max |err| {st['max_abs_err']:.3e}"
-                + (f"; {st['row_flips']} of {st['row_entries']} k-row "
-                   f"entries one bf16 step apart" if st["row_entries"]
-                   else ""))
-        log(f"[parity] {mode} card run with CPU shadows: "
-            f"{time.perf_counter() - t0:.1f}s")
+        _shadow_log(mode, sh, t0)
         t0 = time.perf_counter()
         _, ids_c, lg_c, c_c = _serve_once(cfg, params_cpu, q, table, cal,
                                           prompts, g, "cpu")
@@ -646,7 +749,187 @@ def train_parity_two_layers(cfg_full):
         torch.cuda.empty_cache()
 
 
-def time_kernels(cfg, dev, launches, errs):
+PLAN_DIR = os.path.join(HERE, "build", "plans")
+
+
+def plans_full_width(cfg):
+    """This slice's path at full width: (a) the plan CLI calibrates
+    (train-shaped, 2 batches, lut_matmul) and searches, sym_i8; (b) its
+    heterogeneous variant; (c) serve --plan of (b), --calibrate 1, 4 x 64
+    prompt, gen 16; (e) 2 QAT steps of --batch 4 --seq 128 through (b).
+    Each run's launch counts are read just after it.  Returns the
+    launches of the three runs, the QAT run's delta_matmul launches
+    (M = TB*TS) apart from the rest, and that count."""
+    import numpy as np
+    import torch
+    from repro_torch.calib import DesignPlan, odd_layers
+    from repro_torch.calib import plan as plan_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, train
+    L = cfg.n_layers
+    totals = dict.fromkeys(ops.LAUNCHES, 0)
+    rows = {}
+    os.makedirs(PLAN_DIR, exist_ok=True)
+    path = os.path.join(PLAN_DIR, "chip_smoke_qwen3-1.7b_sym_i8.json")
+    het_path = os.path.join(PLAN_DIR, "chip_smoke_qwen3-1.7b_sym_i8_het.json")
+
+    def launched(want, tag):
+        counts = dict(ops.LAUNCHES)
+        log(f"[plans] {tag}: launches {counts} (expected {want})")
+        assert counts == want, f"{tag}: launch counts {counts} != {want}"
+        return counts
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    # (a) the CLI, on the card
+    with PlainGuard():
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        made = plan_mod.main(["--arch", "qwen3-1.7b", "--batches", "2",
+                              "--quant-mode", "sym_i8", "--out", path])
+        dt = time.perf_counter() - t0
+        # 7 projections x layers x 2 batches, forward only
+        add(launched(dict(dict.fromkeys(ops.LAUNCHES, 0),
+                          lut_matmul=7 * L * 2), "plan CLI"))
+    assert len(made.layers) == 7 * L, len(made.layers)
+    assert DesignPlan.load(path).to_json() == made.to_json()
+    log(f"[plans] (a) plan CLI at full width, sym_i8, 2 train-shaped "
+        f"calibration batches: {len(made.layers)} sites, histogram "
+        f"{made.histogram()}, {len(made.recompose16)} recompose16 rows, "
+        f"{dt:.1f}s (init, prequantize, calibrate, search)")
+    rows["plan_cli_s"] = dt
+    # (b) heterogeneous: odd layers on design2
+    het = odd_layers(made, "design2")
+    het.save(het_path)
+    log(f"[plans] (b) heterogeneous variant (odd layers design2): "
+        f"histogram {het.histogram()}")
+    # (c) serve it
+    seen = {}
+    real = ops.fused_qdot_packed
+
+    def spy(x, qw, dlut, *a, **k):      # the tables the fused calls read
+        seen.setdefault(dlut.data_ptr(), dlut)
+        return real(x, qw, dlut, *a, **k)
+    args = serve.build_parser().parse_args(
+        ARGS + ["--quant-mode", "sym_i8", "--plan", het_path])
+    with PlainGuard():
+        ops.reset_launches()
+        ops.fused_qdot_packed = spy
+        try:
+            r = serve.run(args)
+        finally:
+            ops.fused_qdot_packed = real
+        fused = ops.LAUNCHES["fused_qdot"]
+        tables = {t.cpu().numpy().tobytes() for t in seen.values()}
+        per_step = fused / (G + 2)
+        # warm prefill + warm decode + timed prefill + G-1 decode steps
+        add(launched(dict(dict.fromkeys(ops.LAUNCHES, 0),
+                          delta_matmul=7 * L * CALIB_TOKENS,
+                          fused_qdot=fused,
+                          decode_attention=L * (CALIB_TOKENS + G)),
+                     "plan serve"))
+    assert fused % (G + 2) == 0 and 4 * L <= per_step <= 7 * L, fused
+    assert len(tables) >= 2, f"the fused calls read {len(tables)} table(s)"
+    assert r.out.shape == (B, G) and np.isfinite(r.logits).all()
+    assert ((r.out >= 0) & (r.out < cfg.vocab)).all()
+    rows["serve"] = {"prefill_ms": r.t_prefill * 1e3,
+                     "prefill_tok_s": B * P / r.t_prefill,
+                     "decode_ms_per_step": r.t_decode * 1e3 / (G - 1),
+                     "prepare_s": r.t_prepare,
+                     "peak_gib": r.peak_bytes / 2**30,
+                     "fused_qdot_per_step": per_step,
+                     "distinct_tables": len(tables),
+                     "table_addresses": len(seen)}
+    log(f"[plans] (c) serve --plan (heterogeneous) sym_i8 at full width: "
+        f"prepare (init + prequantize + calibrate + plan) "
+        f"{r.t_prepare:.3f}s; prefill {B}x{P} tokens "
+        f"{r.t_prefill * 1e3:.3f} ms ({B * P / r.t_prefill:.1f} tok/s); "
+        f"decode {r.t_decode * 1e3 / (G - 1):.3f} ms/step; peak device "
+        f"memory {r.peak_bytes / 2**30:.3f} GiB; fused_qdot {per_step:g} "
+        f"launches per forward (112 if every group merges), reading "
+        f"{len(tables)} distinct tables at {len(seen)} addresses (a row "
+        f"of a site's bank each); sample ids {r.out[0][:12].tolist()}")
+    torch.cuda.empty_cache()
+    # (e) QAT through the plan
+    argv = ["--arch", "qwen3-1.7b", "--batch", str(TB), "--seq", str(TS),
+            "--steps", str(TSTEPS), "--quant-mode", "sym_i8", "--plan",
+            het_path, "--log-every", "1"]
+    with torch.enable_grad(), PlainGuard():
+        ops.reset_launches()
+        t = train.run(train.parse_args(argv))
+        # 7 projections x layers x (forward + remat recompute) x steps
+        counts = launched(dict(dict.fromkeys(ops.LAUNCHES, 0),
+                               delta_matmul=7 * L * 2 * TSTEPS), "plan QAT")
+        qat = counts.pop("delta_matmul")
+        add(dict(counts, delta_matmul=0))
+    assert len(t.losses) == TSTEPS
+    assert all(np.isfinite(x) for x in t.losses + t.grad_norms)
+    rows["qat"] = {"ms_per_step": [x * 1e3 for x in t.step_s],
+                   "losses": t.losses, "grad_norms": t.grad_norms,
+                   "peak_gib": t.peak_bytes / 2**30}
+    log(f"[plans] (e) QAT through the plan at full width, --batch {TB} "
+        f"--seq {TS}, sym_i8: losses {t.losses}, grad norms "
+        f"{t.grad_norms}, ms per step {[x * 1e3 for x in t.step_s]}, peak "
+        f"device memory {t.peak_bytes / 2**30:.3f} GiB")
+    del t
+    torch.cuda.empty_cache()
+    log("[plans] " + json.dumps({"plans": rows}))
+    return totals, qat
+
+
+def plan_parity_two_layers(cfg_full):
+    """(d) The plan path at 2 layers of full width, both modes: a plan
+    searched on the card from a train-shaped calibration of this model,
+    made heterogeneous, served calibrated with every launch held against
+    its plain version on the CPU (CpuShadow); then one QAT step through
+    the sym_i8 plan, every delta_matmul launch held likewise."""
+    import numpy as np
+    import torch
+    from repro_torch import calib, configs
+    from repro_torch.kernels import check
+    from repro_torch.quant import QuantConfig, prequantize_weights
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    _, params_gpu = _card_params(cfg, 2)
+    rng = np.random.default_rng(6)
+    cal = rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)
+    batches = [configs.make_smoke_batch(cfg, 2, 16, seed=i) for i in (0, 1)]
+    plans = {}
+    for mode in ("asym_u8", "sym_i8"):
+        qx = QuantConfig(design="design2", backend="xla", mode=mode)
+        table = calib.calibrate(prequantize_weights(params_gpu, qx), cfg, qx,
+                                batches, device="cuda")
+        plans[mode] = plan = calib.odd_layers(calib.plan_designs(
+            table, qx, arch="qwen3-1.7b@2"), "design2")
+        q = QuantConfig(design="design2", backend="fused", mode=mode,
+                        inference=True)
+        t0 = time.perf_counter()
+        with check.CpuShadow() as sh:
+            _, ids, _, _ = _serve_once(cfg, params_gpu, q, None, cal,
+                                       prompts, 4, "cuda", plan=plan)
+        _shadow_log(f"plan {mode} {plan.histogram()}", sh, t0)
+        log(f"[parity] plan {mode}: card ids {ids.tolist()}")
+    q = QuantConfig(design="design2", backend="xla", mode="sym_i8")
+    ocfg = OptConfig(warmup_steps=5, total_steps=100)
+    step = make_train_step(cfg, q, ocfg, remat=True,
+                           params_transform=calib.make_plan_injector(
+                               params_gpu, plans["sym_i8"], q))
+    toks = rng.integers(0, cfg.vocab, (1, 17)).astype(np.int64)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to("cuda"),
+             "labels": torch.from_numpy(toks[:, 1:]).to("cuda")}
+    t0 = time.perf_counter()
+    with torch.enable_grad(), check.CpuShadow(("delta_matmul",)) as sh:
+        _, _, m = step(params_gpu, opt_mod.init(params_gpu, ocfg), batch)
+    assert sh.stats["delta_matmul"]["calls"] == 7 * cfg.n_layers * 2
+    assert np.isfinite(float(m["loss"]))
+    _shadow_log("plan QAT sym_i8", sh, t0)
+
+
+def time_kernels(cfg, dev):
     import torch
     from repro_torch.kernels import check, ops, ref
     from repro_torch.kernels.check import cuda_time
@@ -689,9 +972,40 @@ def time_kernels(cfg, dev, launches, errs):
         c = check.delta_case(B, K, N, False, i, dev)
         rs.append(row("delta_matmul", f"{name} M={B} K={K} N={N}",
                       lambda: ops.delta_matmul(**c), 50,
-                      cuda_time(lambda: ref.delta_matmul_ref(**c), 5),
+                      cuda_time(lambda: check.delta_plain(c), 5),
                       delta_bound(B, K, N)))
     summary["delta_matmul"] = (mean(rs, [1] * len(rs)), rs)
+    # 'initial' asym_u8 through its biased table beside design2's rows
+    # (logged only: the JSON keeps design2's)
+    for i, (name, K, N) in enumerate(unmerged):
+        if name in ("wq", "w_down"):
+            c = check.delta_case(B, K, N, False, i, dev, design="initial")
+            row("delta_matmul", f"{name} M={B} K={K} N={N} initial",
+                lambda: ops.delta_matmul(**c), 50,
+                cuda_time(lambda: check.delta_plain(c), 5),
+                delta_bound(B, K, N))
+    for i, (name, K, N) in enumerate(merged):
+        for M in (B, B * P):
+            if name in ("wqkv", "w_down"):
+                c = check.fused_case(M, K, N, False, 100 + i, dev,
+                                     design="initial")
+                row("fused_qdot", f"{name} M={M} K={K} N={N} initial",
+                    lambda: ops.fused_qdot_packed(**c), 50 if M == B else 10,
+                    cuda_time(lambda: check.fused_plain(c), 3),
+                    fused_bound(M, K, N))
+    # delta_matmul at the planned QAT step (sym_i8, M = TB*TS): the four
+    # training projection shapes, weighted by the projections of a layer
+    # that have each
+    M = TB * TS
+    rs, w = [], []
+    for i, (name, K, N) in enumerate(train_kinds(cfg)):
+        c = check.delta_case(M, K, N, True, 700 + i, dev)
+        rs.append(row("delta_matmul", f"{name} M={M} K={K} N={N} sym_i8 "
+                      f"(plan QAT)", lambda: ops.delta_matmul(**c), 10,
+                      cuda_time(lambda: check.delta_plain(c), 2),
+                      delta_bound(M, K, N)))
+        w.append(name.count("/") + 1)
+    plan_qat = (mean(rs, w), rs)
 
     # fused_qdot: the 4 merged projections at decode (M=B) and prefill
     # (M=B*P), weighted by the serve run's forwards (2 prefill, G decode)
@@ -702,9 +1016,7 @@ def time_kernels(cfg, dev, launches, errs):
             it = 50 if M == B else 10
             rs.append(row("fused_qdot", f"{name} M={M} K={K} N={N}",
                           lambda: ops.fused_qdot_packed(**c), it,
-                          cuda_time(lambda: ref.fused_qdot_ref(
-                              c["x"], c["qw"], c["dlut"], c["scal"],
-                              c["ntab"], c["comp_r"], 0, True, True), 3),
+                          cuda_time(lambda: check.fused_plain(c), 3),
                           fused_bound(M, K, N), gathers=M * K * N,
                           b=c["qw"]))
             w.append(weight)
@@ -770,6 +1082,18 @@ def time_kernels(cfg, dev, launches, errs):
             w.append(name.count("/") + 1)
         summary[kname] = (mean(rs, w), rs)
 
+    log("[timing] library_ms is null: no single PyTorch call computes the "
+        "approximate (delta-table) product, the fused quantize-product-"
+        "dequant, the qk-norm/rope/bf16-row decode attention step, the "
+        "product-LUT gather sum or the exact product plus the "
+        "correction-table gather sum")
+    return summary, plan_qat
+
+
+def kernels_json(summary, plan_qat, launches, errs):
+    """The kernels' JSON record: per kernel the launches of the paths'
+    runs, the max error of phase 3 and the timings of phase 8 (for
+    delta_matmul also its planned-QAT shape, ``plan_qat``)."""
     kernels = []
     for name, (m, rs) in summary.items():
         src, replaces = SOURCES[name]
@@ -783,11 +1107,13 @@ def time_kernels(cfg, dev, launches, errs):
             "bound_by": max(set(by), key=by.count), "library_ms": None,
             **({"gather_share": m["gather_share"]} if "gather_share" in m
                else {})})
-    log("[timing] library_ms is null: no single PyTorch call computes the "
-        "approximate (delta-table) product, the fused quantize-product-"
-        "dequant, the qk-norm/rope/bf16-row decode attention step, the "
-        "product-LUT gather sum or the exact product plus the "
-        "correction-table gather sum")
+        if name == "delta_matmul":
+            qm, qrs = plan_qat
+            kernels[-1]["plan_qat"] = {
+                "launches": launches["delta_matmul_plan_qat"],
+                **{k: qm[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms")},
+                "bound_by": qrs[0]["bound_by"]}
     return kernels
 
 
@@ -944,6 +1270,7 @@ def main() -> int:
         launches = serve_full_width(cfg)
         phase("5. slice parity: card vs CPU at 2 layers of full width")
         parity_two_layers(cfg)
+        parity_initial(cfg)
     # training needs autograd: outside the no_grad block
     phase("6. full-width QAT training")
     launches.update(train_full_width(cfg))
@@ -951,9 +1278,20 @@ def main() -> int:
     train_parity_two_layers(cfg)
     with torch.no_grad():
         phase("8. timing")
-        kernels = time_kernels(cfg, dev, launches, errs)
+        summary, plan_qat = time_kernels(cfg, dev)
         phase("9. trace of the decode step")
         trace_decode(cfg)
+        phase("10. per-layer design plans at full width")
+        plan_launches, qat_launches = plans_full_width(cfg)
+        phase("11. plan parity: card vs CPU at 2 layers of full width")
+        plan_parity_two_layers(cfg)
+    # the plan runs' launches join the paths' counts, but for the planned
+    # QAT steps' delta_matmul launches (M = TB*TS), which stand apart
+    # beside their own timing row
+    launches["delta_matmul_plan_qat"] = qat_launches
+    for k, v in plan_launches.items():
+        launches[k] += v
+    kernels = kernels_json(summary, plan_qat, launches, errs)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -177,6 +177,24 @@ def observing(obs: Observer):
         qlin.set_observer(None)
 
 
+def calibrate(pparams, cfg, qcfg: QuantConfig, batches,
+              device="cuda") -> CalibrationTable:
+    """Training-shaped calibration: run forward_train over ``batches``
+    (dicts of tokens/labels arrays, as configs.make_smoke_batch makes
+    them) with the observer installed, and return the table.
+    ``pparams`` must be prequantized (quant.prequantize_weights) so
+    sites carry tree-path names."""
+    from ..models import transformer as T
+    dev = resolve(device)
+    obs = Observer(qcfg)
+    with observing(obs), torch.no_grad():
+        for batch in batches:
+            T.forward_train(pparams, {k: torch.as_tensor(np.asarray(v),
+                                                         device=dev)
+                                      for k, v in batch.items()}, cfg, qcfg)
+    return obs.table()
+
+
 def calibrate_decode(pparams, cfg, qcfg: QuantConfig, prompts,
                      gen_len: int = 0, device="cuda") -> CalibrationTable:
     """Decode-shaped calibration: feed ``prompts`` (B, P) int32 token by

@@ -165,10 +165,12 @@ def apply_calibration(pparams, table: CalibrationTable, *,
 
 
 def attach_comp_cols(pparams, qcfg):
-    """Cache the column-compensation colsum on every prequantized weight:
-    ``take(mu_c, q).sum(K)`` for the serving design's mean-field table,
-    summed in float64 and rounded to float32 as the reference does.  The
-    fused kernel's epilogue then reads the cached (..., 1, N) vector.
+    """Cache the column-compensation colsum on every prequantized weight
+    that carries no per-layer plan tables: ``take(mu_c, q).sum(K)`` for
+    the serving design's mean-field table, summed in float64 and rounded
+    to float32 as the reference does.  The fused kernel's epilogue then
+    reads the cached (..., 1, N) vector.  Plan-installed wrappers (comp_c
+    present) are skipped: ``calib.plan.apply_plan`` caches theirs.
     Design-specific: re-run after changing ``QuantConfig.design``.  No-op
     when qcfg.compensate or qcfg.enabled is off."""
     if not (qcfg.enabled and qcfg.compensate):
@@ -190,3 +192,21 @@ def attach_comp_cols(pparams, qcfg):
 
     return qlin.map_quantized(pparams, install)
 
+
+
+def coverage(pparams, table: CalibrationTable) -> dict:
+    """How much of the model the table covers: {sites_expected,
+    sites_recorded, missing}."""
+    expected = []
+
+    def visit(node):
+        lead = tuple(int(d) for d in node.w.shape[:-2])
+        expected.extend(site_key(node.path, idx)
+                        for idx in _lead_indices(lead))
+        return node
+
+    qlin.map_quantized(pparams, visit)
+    missing = [k for k in expected if k not in table.sites]
+    return {"sites_expected": len(expected),
+            "sites_recorded": len(table.sites),
+            "missing": missing}

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -59,3 +61,14 @@ def get(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return importlib.import_module(f"{__name__}.{canon(name)}").SMOKE
+
+
+def make_smoke_batch(cfg: ArchConfig, batch: int = 2, seq: int = 16,
+                     seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random tokens and labels (batch, seq) int32 from a numpy seed, as
+    the reference draws them (dense family: no frontend)."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab, (batch, seq)).astype(
+                np.int32),
+            "labels": rng.integers(0, cfg.vocab, (batch, seq)).astype(
+                np.int32)}

@@ -1,5 +1,6 @@
-"""The paper's gate-level 3,3:2 compressors, the multiplier registry and
-the 256x256 tables derived from them (plain numpy)."""
-from . import compressors, lut, multipliers  # noqa: F401
+"""The paper's gate-level 3,3:2 compressors, the multiplier registry,
+the 256x256 tables derived from them and the unit-gate cost model (plain
+numpy)."""
+from . import compressors, cost, lut, multipliers  # noqa: F401
 
-__all__ = ["compressors", "multipliers", "lut"]
+__all__ = ["compressors", "cost", "multipliers", "lut"]

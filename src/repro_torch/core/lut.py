@@ -62,8 +62,9 @@ def build_delta_lut(name: str, signed: bool = False) -> np.ndarray:
     (128 KiB, the size that fits a Hopper block's shared memory beside
     its operand tiles) for every paper design; designs whose error range
     overflows int16 (only the pedagogical 'initial' array, min ED -48744)
-    fall back to int32, which the CUDA kernels refuse.  The round trip is
-    asserted exact either way.
+    fall back to int32, as the reference keeps them; the CUDA kernels
+    take that one as a biased uint16 table (kernels.ops.narrow_delta).
+    The round trip is asserted exact either way.
     """
     e = signed_error_table(name) if signed else error_table(name)
     i16 = np.iinfo(np.int16)

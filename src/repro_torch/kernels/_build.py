@@ -31,10 +31,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # C entry point and argument types of each library (csrc/<name>.cu)
 SIGNATURES = {
     "delta_matmul": ("delta_matmul_launch",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fused_qdot": ("fused_qdot_launch",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                    _I, _I, _I, _I, _I, _P]),
+                    _I, _I, _I, _I, _I, _I, _I, _P]),
     "decode_attention": ("decode_attention_launch",
                          [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
                           _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

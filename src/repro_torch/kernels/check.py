@@ -7,7 +7,8 @@ kernel wrapper and the plain version on the same tensors and raises
 AssertionError beyond the stated tolerances, returning the measured gaps.
 
 Tolerances, and why:
-  delta_matmul      exact: integer arithmetic in any order.
+  delta_matmul      exact: integer arithmetic in any order (with a biased
+                    table too: the sums are exact modulo 2^32).
   fused_qdot        qx and the int32 accumulator exact.  The float output
                     is exact without compensation (same ops, same order,
                     no FMA contraction); with compensation the row sum of
@@ -104,22 +105,123 @@ def cuda_time(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
                          "queued the timed calls")
 
 
-def delta_case(M, K, N, signed, seed, device):
+def delta_case(M, K, N, signed, seed, device, design="design2"):
+    """Inputs of one delta_matmul launch, the design's delta table as
+    ops.narrow_delta narrows it (biased uint16 for the unsigned
+    'initial')."""
     rng = np.random.default_rng(seed)
     lo, hi = (-128, 128) if signed else (0, 256)
     a = torch.from_numpy(rng.integers(lo, hi, (M, K)).astype(np.int32))
     b = torch.from_numpy(rng.integers(lo, hi, (K, N)).astype(np.int32))
-    d = torch.from_numpy(build_delta_lut("design2", signed))
+    d, unsigned, bias = ops.narrow_delta(build_delta_lut(design, signed))
     return dict(a=a.to(device),
                 b=b.to(torch.int8 if signed else torch.uint8).to(device),
-                dlut=d.to(device), offset=128 if signed else 0)
+                dlut=d.to(device), offset=128 if signed else 0,
+                unsigned=unsigned, bias=bias)
+
+
+def delta_plain(case) -> torch.Tensor:
+    """The plain version of one delta_matmul launch, on the int32 (or
+    int16) table the narrowed one stands for."""
+    return ref.delta_matmul_ref(
+        case["a"], case["b"],
+        ops.widen_delta(case["dlut"], case.get("unsigned", False),
+                        case.get("bias", 0)), case["offset"])
 
 
 def check_delta(case) -> dict:
     got = _launches("delta_matmul", lambda: ops.delta_matmul(**case))
-    want = ref.delta_matmul_ref(**case)
-    assert torch.equal(got, want), "delta_matmul: kernel != plain"
+    assert torch.equal(got, delta_plain(case)), "delta_matmul: kernel != plain"
     return {"max_abs_err": 0.0}
+
+
+def sweep_values(signed: bool) -> np.ndarray:
+    """Every int8 (signed) or uint8 operand value, ascending."""
+    return np.arange(-128, 128) if signed else np.arange(256)
+
+
+def delta_sweep_case(design, signed, device, rows=slice(None)):
+    """delta_case over the 65,536 operand pairs: a (256, 1) every value,
+    b (1, 256) every value, so the output is the design's product table.
+    ``rows``: a slice of a's rows (4 rows take the split-K schedule)."""
+    v = sweep_values(signed)
+    return dict(delta_case(1, 1, 1, signed, 0, device, design=design),
+                a=torch.from_numpy(v[rows, None].astype(np.int32)).to(device),
+                b=torch.from_numpy(v[None, :].astype(
+                    np.int8 if signed else np.uint8)).to(device))
+
+
+def fused_sweep_case(design, signed, device, rows=slice(None)):
+    """fused_case over the 65,536 operand pairs: x (n, 1) every value
+    with scale 1 and zero point 0, so qx = x, and qw (1, 256) every
+    value; no compensation, weight scale 1 and zero point 0, so the
+    output and the accumulator are the design's product table."""
+    v = sweep_values(signed)
+    case = fused_case(1, 4, 256, signed, 0, device, compensate=False,
+                      design=design)
+    ntab = np.zeros((4, 256), np.float32)
+    ntab[0], ntab[2] = 1.0, v
+    return dict(case,
+                x=torch.from_numpy(v[rows, None].astype(np.float32)).to(
+                    device),
+                qw=torch.from_numpy(v[None, :].astype(
+                    np.int8 if signed else np.uint8)).to(device),
+                scal=torch.tensor([1.0] + [0.0] * 7, device=device),
+                ntab=torch.from_numpy(ntab).to(device))
+
+
+def check_sweeps(design, signed, device) -> int:
+    """The 65,536-pair sweep through delta_matmul and fused_qdot on both
+    schedules (the tile schedule on all 256 rows, split-K on 4 rows at a
+    time), each launch held to its plain version and the rows to the
+    design's product table; returns the launches made."""
+    from ..core.lut import build_lut, build_signed_lut
+    table = torch.from_numpy((build_signed_lut if signed else build_lut)(
+        design).astype(np.int32))
+    n = 0
+    for rows in [slice(None)] + [slice(i, i + 4) for i in range(0, 256, 4)]:
+        case = delta_sweep_case(design, signed, device, rows)
+        check_delta(case)
+        got = ops.delta_matmul(**case)
+        assert torch.equal(got.cpu(), table[rows]), \
+            "delta_matmul: sweep != product table"
+        case = fused_sweep_case(design, signed, device, rows)
+        check_fused(case)
+        _, _, acc = ops.fused_qdot_packed(**case, return_int=True)
+        assert torch.equal(acc.cpu(), table[rows]), \
+            "fused_qdot: sweep != product table"
+        n += 4
+    return n
+
+
+BANK_DESIGNS = ("design1", "design2", "design1_trunc4")
+
+
+def check_bank_rows(M, K, N, signed, seed, device,
+                    designs=BANK_DESIGNS) -> int:
+    """A plan's bank as the kernels see it: an int16 (n, 256, 256) bank of
+    ``designs`` on the device, each row (a view, 16-byte aligned) passed
+    to delta_matmul and fused_qdot, held to the plain version and
+    bit-equal to the same table passed alone.  Returns the launches."""
+    bank = torch.stack([ops.narrow_delta(build_delta_lut(d, signed))[0]
+                        for d in designs]).to(device)
+    n = 0
+    for i, d in enumerate(designs):
+        row = bank[i]
+        assert row.is_contiguous() and row.data_ptr() % 16 == 0
+        case = delta_case(M, K, N, signed, seed + i, device, design=d)
+        check_delta(dict(case, dlut=row))
+        assert torch.equal(ops.delta_matmul(**dict(case, dlut=row)),
+                           ops.delta_matmul(**case)), \
+            "delta_matmul: a bank row != the table alone"
+        f = fused_case(M, K, N, signed, seed + i, device, design=d)
+        check_fused(dict(f, dlut=row))
+        for x, y in zip(ops.fused_qdot_packed(**dict(f, dlut=row),
+                                              return_int=True),
+                        ops.fused_qdot_packed(**f, return_int=True)):
+            assert torch.equal(x, y), "fused_qdot: a bank row != alone"
+        n += 4
+    return n
 
 
 LUT_PATTERNS = ("uniform", "conflict_free", "normal")
@@ -231,7 +333,8 @@ def check_residual(case) -> dict:
     return _resid_err(got, want)
 
 
-def fused_case(M, K, N, signed, seed, device, compensate=True):
+def fused_case(M, K, N, signed, seed, device, compensate=True,
+               design="design2"):
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(M, K)) * 1.7 + 0.3).astype(np.float32)
     off = 128 if signed else 0
@@ -246,7 +349,7 @@ def fused_case(M, K, N, signed, seed, device, compensate=True):
         qw = rng.integers(0, 256, (K, N)).astype(np.int32)
         zw = rng.integers(100, 160, N).astype(np.float32)
     x[0, :4] = (np.arange(4) + 0.5).astype(np.float32) * sx  # .5 edges
-    mu_r, mu_c, mu = _mean_field_tables("design2", signed)
+    mu_r, mu_c, mu = _mean_field_tables(design, signed)
     sw = (rng.uniform(0.5, 2.0, N) * 1e-3).astype(np.float32)
     comp_col = mu_c[qw + off].sum(0, dtype=np.float64).astype(np.float32)
     scal = np.array([sx, zx, mu, 0, 0, 0, 0, 0], np.float32)
@@ -255,20 +358,29 @@ def fused_case(M, K, N, signed, seed, device, compensate=True):
     def t(v, dtype=None):
         v = torch.from_numpy(np.ascontiguousarray(v))
         return (v if dtype is None else v.to(dtype)).to(device)
+    dlut, unsigned, bias = ops.narrow_delta(build_delta_lut(design, signed))
     return dict(x=t(x), qw=t(qw, torch.int8 if signed else torch.uint8),
-                dlut=t(build_delta_lut("design2", signed)), scal=t(scal),
+                dlut=dlut.to(device), scal=t(scal),
                 ntab=t(ntab.astype(np.float32)), comp_r=t(mu_r),
-                signed=signed, compensate=compensate)
+                signed=signed, compensate=compensate, unsigned=unsigned,
+                bias=bias)
+
+
+def fused_plain(case, return_int: bool = False):
+    """The plain version of one fused_qdot launch."""
+    return ref.fused_qdot_ref(
+        case["x"], case["qw"],
+        ops.widen_delta(case["dlut"], case.get("unsigned", False),
+                        case.get("bias", 0)),
+        case["scal"], case["ntab"], case["comp_r"],
+        offset=128 if case["signed"] else 0, asym=not case["signed"],
+        compensate=case["compensate"], return_int=return_int)
 
 
 def check_fused(case) -> dict:
     out, qx, acc = _launches("fused_qdot", lambda: ops.fused_qdot_packed(
         **case, return_int=True))
-    w_out, w_qx, w_acc = ref.fused_qdot_ref(
-        case["x"], case["qw"], case["dlut"], case["scal"], case["ntab"],
-        case["comp_r"], offset=128 if case["signed"] else 0,
-        asym=not case["signed"], compensate=case["compensate"],
-        return_int=True)
+    w_out, w_qx, w_acc = fused_plain(case, return_int=True)
     assert torch.equal(qx, w_qx), "fused_qdot: quantized activations differ"
     assert torch.equal(acc, w_acc), "fused_qdot: int32 accumulators differ"
     err = float((out - w_out).abs().max())
@@ -472,9 +584,12 @@ class CpuShadow:
         st["row_flips"] += flips
         st["row_entries"] += entries
 
-    def _delta(self, a, b, dlut, offset=0):
-        out = self.saved["delta_matmul"](a, b, dlut, offset)
-        want = ref.delta_matmul_ref(_cpu(a), _cpu(b), _cpu(dlut), offset)
+    def _delta(self, a, b, dlut, offset=0, *, unsigned=False, bias=0):
+        out = self.saved["delta_matmul"](a, b, dlut, offset,
+                                         unsigned=unsigned, bias=bias)
+        want = ref.delta_matmul_ref(
+            _cpu(a), _cpu(b), ops.widen_delta(_cpu(dlut), unsigned, bias),
+            offset)
         assert torch.equal(out.cpu(), want), "delta_matmul: card != cpu"
         self._note("delta_matmul", 0.0)
         return out
@@ -496,13 +611,15 @@ class CpuShadow:
         return out
 
     def _fused(self, x, qw, dlut, scal, ntab, comp_r, *, signed=False,
-               compensate=False, return_int=False):
+               compensate=False, return_int=False, unsigned=False, bias=0):
         res = self.saved["fused_qdot_packed"](
             x, qw, dlut, scal, ntab, comp_r, signed=signed,
-            compensate=compensate, return_int=True)
+            compensate=compensate, return_int=True, unsigned=unsigned,
+            bias=bias)
         out, qx, acc = (t.cpu() for t in res)
         w_out, w_qx, w_acc = ref.fused_qdot_ref(
-            *(_cpu(t) for t in (x, qw, dlut, scal, ntab, comp_r)),
+            _cpu(x), _cpu(qw), ops.widen_delta(_cpu(dlut), unsigned, bias),
+            *(_cpu(t) for t in (scal, ntab, comp_r)),
             offset=128 if signed else 0, asym=not signed,
             compensate=compensate, return_int=True)
         assert torch.equal(qx, w_qx), "fused_qdot: qx card != cpu"

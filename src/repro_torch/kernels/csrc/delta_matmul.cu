@@ -40,8 +40,12 @@
 //    Zero-filled rows beyond M are summed but never stored.
 //  * The exact part multiplies the operand values; the table index is
 //    masked to [0, 255] after the signed +128 shift, as in the twin.
-//  * int32 tables (design 'initial', 256 KiB) do not fit; the wrapper
-//    refuses them.
+//  * The table is 16 bits wide: int16, or, for a design whose delta range
+//    fits 16 bits only after a shift (the unsigned 'initial', D in
+//    [-48744, 0]), uint16 entries T = D + bias (ops.narrow_delta).  The
+//    biased sums are exact in int32 arithmetic modulo 2^32, and each
+//    output subtracts K * bias once (tile_kernel at its store; the split-K
+//    CTAs bias * their k count per unit), so the result is D's sum.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -64,18 +68,21 @@ constexpr int kTN = kColThreads;
 constexpr int kTK = 32;
 constexpr int kTileSmem = kTableBytes + kTM * kTK * 4 + kTK * kTN;
 
+// U16: the table's entries read as uint16 (a biased table), else int16
+template <bool U16>
 __device__ __forceinline__ int term(int av, int bv, int ib, int offset,
                                     const int16_t* D) {
   const int ia = (av + offset) & 255;
-  return av * bv + (int)D[(ia << 8) | ib];
+  const int16_t d = D[(ia << 8) | ib];
+  return av * bv + (U16 ? (int)(uint16_t)d : (int)d);
 }
 
-template <bool BSIGNED>
+template <bool BSIGNED, bool U16>
 __global__ void __launch_bounds__(kThreads)
 tile_kernel(const int32_t* __restrict__ a, const uint8_t* __restrict__ b,
             const int16_t* __restrict__ dlut, int32_t* __restrict__ out,
             int M, int K, int N, int offset, int tiles_n, int n_tiles,
-            int b_vec16) {
+            int b_vec16, int kbias) {
   extern __shared__ __align__(16) unsigned char smem[];
   int16_t* D = reinterpret_cast<int16_t*>(smem);
   int32_t* As = reinterpret_cast<int32_t*>(smem + kTableBytes);   // [kTM][kTK]
@@ -127,14 +134,15 @@ tile_kernel(const int32_t* __restrict__ a, const uint8_t* __restrict__ b,
         const int ib = (bv + offset) & 255;
 #pragma unroll
         for (int r = 0; r < kRPT; ++r)
-          acc[r] += term(As[(rg * kRPT + r) * kTK + kk], bv, ib, offset, D);
+          acc[r] += term<U16>(As[(rg * kRPT + r) * kTK + kk], bv, ib, offset,
+                              D);
       }
     }
     const int n = n0 + col;
 #pragma unroll
     for (int r = 0; r < kRPT; ++r) {
       const int m = m0 + rg * kRPT + r;
-      if (m < M && n < N) out[(size_t)m * N + n] = acc[r];
+      if (m < M && n < N) out[(size_t)m * N + n] = acc[r] - kbias;
     }
   }
 }
@@ -152,12 +160,12 @@ constexpr int kSmallSmem = kTableBytes + 2 * kSmallA * 4 + 2 * kSmallB
     + kGroups * kRPT * kSmallTN * 4 + 16;
 static_assert(kThreads / kSmallTN == kRPT, "one reducing thread an output");
 
-template <bool BSIGNED>
+template <bool BSIGNED, bool U16>
 __global__ void __launch_bounds__(kThreads)
 small_m_kernel(const int32_t* __restrict__ a, const uint8_t* __restrict__ b,
                const int16_t* __restrict__ dlut, int32_t* __restrict__ out,
                int M, int K, int N, int offset, ac::StreamK sk, int a_vec16,
-               int b_vec16) {
+               int b_vec16, int bias) {
   extern __shared__ __align__(16) unsigned char smem[];
   int16_t* D = reinterpret_cast<int16_t*>(smem);
   // a [2][4][kChunk], b [2][kChunk][128], partials [group][row][128]
@@ -233,7 +241,11 @@ small_m_kernel(const int32_t* __restrict__ a, const uint8_t* __restrict__ b,
       const int ib = (bv + offset) & 255;
 #pragma unroll
       for (int r = 0; r < kRPT; ++r)
-        acc[r] += term(Ar[r * kChunk + kk], bv, ib, offset, D);
+        acc[r] += term<U16>(Ar[r * kChunk + kk], bv, ib, offset, D);
+    }
+    if (U16 && ke > kb) {   // this group's share of K * bias
+#pragma unroll
+      for (int r = 0; r < kRPT; ++r) acc[r] -= bias * (ke - kb);
     }
     if (u + 1 == u1 || (u + 1) % sk.chunks == 0) {
       // the end of this CTA's run of the tile: the groups' partials meet
@@ -263,11 +275,11 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-template <bool BSIGNED>
+template <bool BSIGNED, bool U16>
 cudaError_t launch_tiles(const int32_t* a, const uint8_t* b,
                          const int16_t* dlut, int32_t* out, int M, int K,
-                         int N, int offset, cudaStream_t stream) {
-  auto kern = tile_kernel<BSIGNED>;
+                         int N, int offset, int bias, cudaStream_t stream) {
+  auto kern = tile_kernel<BSIGNED, U16>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
   if (err != cudaSuccess) return err;
@@ -277,16 +289,19 @@ cudaError_t launch_tiles(const int32_t* a, const uint8_t* b,
   const int n_tiles = ((M + kTM - 1) / kTM) * tiles_n;
   const int grid = n_tiles < sms ? n_tiles : sms;
   const int vec = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(b) % 16 == 0);
+  // K * bias modulo 2^32, as the int32 sums wrap
+  const int kbias = (int)((unsigned)K * (unsigned)bias);
   kern<<<grid, kThreads, kTileSmem, stream>>>(a, b, dlut, out, M, K, N,
-                                              offset, tiles_n, n_tiles, vec);
+                                              offset, tiles_n, n_tiles, vec,
+                                              kbias);
   return cudaGetLastError();
 }
 
-template <bool BSIGNED>
+template <bool BSIGNED, bool U16>
 cudaError_t launch_small_m(const int32_t* a, const uint8_t* b,
                            const int16_t* dlut, int32_t* out, int M, int K,
-                           int N, int offset, cudaStream_t stream) {
-  auto kern = small_m_kernel<BSIGNED>;
+                           int N, int offset, int bias, cudaStream_t stream) {
+  auto kern = small_m_kernel<BSIGNED, U16>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmallSmem);
   if (err != cudaSuccess) return err;
@@ -300,19 +315,23 @@ cudaError_t launch_small_m(const int32_t* a, const uint8_t* b,
   const int avec = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(a) % 16 == 0);
   const int bvec = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(b) % 16 == 0);
   kern<<<sk.grid, kThreads, kSmallSmem, stream>>>(a, b, dlut, out, M, K, N,
-                                                  offset, sk, avec, bvec);
+                                                  offset, sk, avec, bvec,
+                                                  bias);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // a (M,K) int32, b (K,N) uint8 (b_signed=0) or int8 viewed as bytes
-// (b_signed=1), dlut (256,256) int16 (16-byte aligned), out (M,N) int32.
-// All row-major and contiguous.  Returns the cudaError_t of the launch.
+// (b_signed=1), dlut (256,256) 16-bit entries (16-byte aligned): int16
+// (u16=0, bias 0), or uint16 holding D + bias (u16=1, unsigned operands
+// only; cudaErrorInvalidValue otherwise); out (M,N) int32.  All row-major
+// and contiguous.  Returns the cudaError_t of the launch.
 extern "C" int delta_matmul_launch(const void* a, const void* b,
                                    const void* dlut, void* out, int M, int K,
-                                   int N, int offset, int b_signed,
-                                   void* stream) {
+                                   int N, int offset, int b_signed, int u16,
+                                   int bias, void* stream) {
+  if (u16 ? b_signed != 0 : bias != 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return 0;
   auto O = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
@@ -321,9 +340,18 @@ extern "C" int delta_matmul_launch(const void* a, const void* b,
   auto A = static_cast<const int32_t*>(a);
   auto Bp = static_cast<const uint8_t*>(b);
   auto Dp = static_cast<const int16_t*>(dlut);
-  if (M <= 4)
-    return b_signed ? launch_small_m<true>(A, Bp, Dp, O, M, K, N, offset, s)
-                    : launch_small_m<false>(A, Bp, Dp, O, M, K, N, offset, s);
-  return b_signed ? launch_tiles<true>(A, Bp, Dp, O, M, K, N, offset, s)
-                  : launch_tiles<false>(A, Bp, Dp, O, M, K, N, offset, s);
+  if (M <= 4) {
+    if (b_signed)
+      return launch_small_m<true, false>(A, Bp, Dp, O, M, K, N, offset, 0, s);
+    return u16 ? launch_small_m<false, true>(A, Bp, Dp, O, M, K, N, offset,
+                                             bias, s)
+               : launch_small_m<false, false>(A, Bp, Dp, O, M, K, N, offset,
+                                              0, s);
+  }
+  if (b_signed)
+    return launch_tiles<true, false>(A, Bp, Dp, O, M, K, N, offset, 0, s);
+  return u16 ? launch_tiles<false, true>(A, Bp, Dp, O, M, K, N, offset, bias,
+                                         s)
+             : launch_tiles<false, false>(A, Bp, Dp, O, M, K, N, offset, 0,
+                                          s);
 }

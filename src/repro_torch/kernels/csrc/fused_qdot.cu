@@ -54,6 +54,11 @@
 //    kernels/check.py), not bit for bit.
 //  * Overflow: |acc| <= 6144 * 255^2 + 6144 * 2^15 < 2^31 at the path's
 //    largest K.
+//  * A biased table (U16, asym_u8 only: the unsigned 'initial', whose D in
+//    [-48744, 0] needs 17 bits as int16) holds T = D + bias as uint16
+//    (ops.narrow_delta).  The sums of T are exact (6144 * (255^2 + 48744)
+//    < 2^31), and the epilogue subtracts K * bias once from each output,
+//    on both schedules, before acc_out and the dequant see it.
 //  * Ragged edges are masked (k stops at K), so no K-padding correction.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -212,6 +217,7 @@ struct Args {
   int32_t* acc;
   int32_t* cnt;
   int M, K, kp, N, b_vec16;
+  int kbias;               // K * bias of a biased table (U16), else 0
 };
 
 // b of the step at (k0, n0) into Bd: one 16-byte cp.async a thread
@@ -244,7 +250,7 @@ __device__ __forceinline__ void stage_a(const Args& g, uint8_t* Ad, int rows,
   }
 }
 
-template <bool ASYM, bool COMP>
+template <bool ASYM, bool COMP, bool U16>
 __global__ void __launch_bounds__(kThreads, 1)
 tile_kernel(const Args g, int tiles_n, int n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -297,7 +303,7 @@ tile_kernel(const Args g, int tiles_n, int n_tiles) {
     int m0, n0, k0;
     origin(s, m0, n0, k0);
     if (m0 + rg * kRPT < g.M)      // warp-uniform: rows of this group
-      gl::gather_run<kRPT, false, kExact>(
+      gl::gather_run<kRPT, U16, kExact>(
           tab, As + buf * kStageA + rg * kRPT * kTK, kTK,
           Bs + buf * kStageB + col, kTN, min(kTK, K - k0), axor, off, acc);
     if (s % stages == stages - 1) {
@@ -306,9 +312,10 @@ tile_kernel(const Args g, int tiles_n, int n_tiles) {
       for (int r = 0; r < kRPT; ++r) {
         const int m = m0 + rg * kRPT + r;
         if (m < g.M && n < g.N) {
+          const int v = acc[r] - g.kbias;
           g.out[(size_t)m * g.N + n] = dequant<ASYM, COMP>(
-              acc[r], g.rsum[m], g.rcomp[m], g.scal, g.ntab, n, g.N, kf);
-          if (g.acc_out != nullptr) g.acc_out[(size_t)m * g.N + n] = acc[r];
+              v, g.rsum[m], g.rcomp[m], g.scal, g.ntab, n, g.N, kf);
+          if (g.acc_out != nullptr) g.acc_out[(size_t)m * g.N + n] = v;
         }
         acc[r] = 0;
       }
@@ -317,7 +324,7 @@ tile_kernel(const Args g, int tiles_n, int n_tiles) {
   }
 }
 
-template <bool ASYM, bool COMP>
+template <bool ASYM, bool COMP, bool U16>
 __global__ void __launch_bounds__(kThreads, 1)
 splitk_kernel(const Args g, ac::StreamK sk) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -364,7 +371,7 @@ splitk_kernel(const Args g, ac::StreamK sk) {
     const int kb = grp * kKPerGroup;
     const int kn = min(kKPerGroup, g.K - k0 - kb);
     if (kn > 0)
-      gl::gather_run<kSmallR, false, kExact>(
+      gl::gather_run<kSmallR, U16, kExact>(
           tab, As + buf * kSmallA + kb, kTK,
           Bs + buf * kStageB + kb * kTN + col, kTN, kn, axor, off, acc);
     if (u + 1 == u1 || (u + 1) % sk.chunks == 0) {
@@ -399,7 +406,7 @@ splitk_kernel(const Args g, ac::StreamK sk) {
       if (*last) {                           // every chunk is in: epilogue
         __threadfence();
         if (mine) {
-          const int v = *reinterpret_cast<volatile int32_t*>(p);
+          const int v = *reinterpret_cast<volatile int32_t*>(p) - g.kbias;
           g.out[(size_t)m * g.N + n] = dequant<ASYM, COMP>(
               v, g.rsum[m], g.rcomp[m], g.scal, g.ntab, n, g.N, kf);
           if (g.acc_out != nullptr) g.acc_out[(size_t)m * g.N + n] = v;
@@ -417,7 +424,7 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
-template <bool ASYM, bool COMP>
+template <bool ASYM, bool COMP, bool U16>
 cudaError_t run(const Args& g, long long nzero, cudaStream_t stream) {
   quantize_rows<ASYM, COMP><<<g.M, kQThreads, 0, stream>>>(
       g.x, g.scal, g.comp_r, g.qb, g.qx_out, g.rsum, g.rcomp, g.acc, nzero,
@@ -428,7 +435,7 @@ cudaError_t run(const Args& g, long long nzero, cudaStream_t stream) {
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   const int tiles_n = (g.N + kTN - 1) / kTN;
   if (g.M <= kSmallR) {
-    auto kern = splitk_kernel<ASYM, COMP>;
+    auto kern = splitk_kernel<ASYM, COMP, U16>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmallSmem);
     if (err != cudaSuccess) return err;
@@ -436,7 +443,7 @@ cudaError_t run(const Args& g, long long nzero, cudaStream_t stream) {
         tiles_n, g.K > 0 ? (g.K + kTK - 1) / kTK : 1, sms);
     kern<<<sk.grid, kThreads, kSmallSmem, stream>>>(g, sk);
   } else {
-    auto kern = tile_kernel<ASYM, COMP>;
+    auto kern = tile_kernel<ASYM, COMP, U16>;
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
     if (err != cudaSuccess) return err;
@@ -450,7 +457,9 @@ cudaError_t run(const Args& g, long long nzero, cudaStream_t stream) {
 }  // namespace
 
 // x (M,K) f32; qw (K,N) uint8 (asym) or int8 viewed as bytes (sym);
-// dlut (256,256) int16, 16-byte aligned; scal (8,) f32 [sx, zx, comp_mu,
+// dlut (256,256) 16-bit entries, 16-byte aligned: int16 (u16=0, bias 0)
+// or uint16 holding D + bias (u16=1, asym only; cudaErrorInvalidValue
+// otherwise); scal (8,) f32 [sx, zx, comp_mu,
 // ...]; ntab (4,N) f32 rows [sw, zw, colsum, comp_col]; comp_r (256,)
 // f32; out (M,N) f32.  qx_out (M,K) and acc_out (M,N) int32 are optional
 // (null to skip).  scratch: scratch_bytes of device memory, 16-byte
@@ -463,7 +472,8 @@ extern "C" int fused_qdot_launch(const void* x, const void* qw,
                                  void* out, void* qx_out, void* acc_out,
                                  void* scratch, long long scratch_bytes,
                                  int M, int K, int N, int asym, int compensate,
-                                 void* stream) {
+                                 int u16, int bias, void* stream) {
+  if (u16 ? !asym : bias != 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return 0;
   const Layout L = layout(M, K, N);
   if (scratch_bytes < L.bytes) return (int)cudaErrorInvalidValue;
@@ -488,15 +498,20 @@ extern "C" int fused_qdot_launch(const void* x, const void* qw,
   g.kp = (int)L.kp;
   g.N = N;
   g.b_vec16 = (N % 16 == 0) && (reinterpret_cast<uintptr_t>(qw) % 16 == 0);
+  // K * bias modulo 2^32, as the int32 sums wrap
+  g.kbias = (int)((unsigned)(K > 0 ? K : 0) * (unsigned)bias);
   // the split-K accumulator and the arrival counts are contiguous
   const long long nzero = L.splitk ? (L.bytes - L.acc) / 4 : 0;
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (asym)
-    err = compensate ? run<true, true>(g, nzero, s)
-                     : run<true, false>(g, nzero, s);
+  if (asym && u16)
+    err = compensate ? run<true, true, true>(g, nzero, s)
+                     : run<true, false, true>(g, nzero, s);
+  else if (asym)
+    err = compensate ? run<true, true, false>(g, nzero, s)
+                     : run<true, false, false>(g, nzero, s);
   else
-    err = compensate ? run<false, true>(g, nzero, s)
-                     : run<false, false>(g, nzero, s);
+    err = compensate ? run<false, true, false>(g, nzero, s)
+                     : run<false, false, false>(g, nzero, s);
   return (int)err;
 }

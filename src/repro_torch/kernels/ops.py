@@ -16,10 +16,13 @@ Five kernels, each written by hand in CUDA C++ for Hopper
   residual_matmul   exact product + rank-r error correction, float32, as
                     a gather sum over the correction table C = F G
 
-The lowering follows the tensors' device: a CUDA tensor launches the
-kernel (or the wrapper raises on what the kernel does not take), a CPU
-tensor takes the plain version.  There is no fallback from one to the
-other.  ``LAUNCHES`` counts the kernel launches of each wrapper.
+delta_matmul and fused_qdot keep the delta table in 16 bits
+(``narrow_delta``: int16, or uint16 with a bias for the unsigned
+'initial').  The lowering follows the tensors' device: a CUDA tensor
+launches the kernel (or the wrapper raises on what the kernel does not
+take), a CPU tensor takes the plain version.  There is no fallback from
+one to the other.  ``LAUNCHES`` counts the kernel launches of each
+wrapper.
 """
 from __future__ import annotations
 
@@ -123,12 +126,48 @@ def factor_tables(design: str, rank: int, signed: bool, device):
     return _LUT_CACHE[key]
 
 
-def delta_table(design: str, signed: bool, device) -> torch.Tensor:
-    """get_delta_lut as a tensor on ``device`` (cached per device)."""
+def narrow_delta(dlut):
+    """A (256,256) delta table in the 16 bits the delta_matmul and
+    fused_qdot kernels keep in shared memory: (int16 tensor of the bits,
+    unsigned, bias).  An int16-range table is itself (unsigned False,
+    bias 0).  A wider one whose range spans at most 65,535 (the unsigned
+    'initial', D in [-48744, 0]) is stored biased, T = D + bias with bias
+    = -min(D), its bits read as uint16 (unsigned True); the kernels
+    subtract K * bias from each output.  Raises ValueError for a table
+    that fits neither."""
+    arr = np.asarray(dlut.cpu() if isinstance(dlut, torch.Tensor) else dlut)
+    if arr.shape != (256, 256) or arr.dtype.kind not in "iu":
+        raise ValueError(f"delta table must be a (256, 256) integer table, "
+                         f"got {arr.dtype} {arr.shape}")
+    lo, hi = int(arr.min()), int(arr.max())
+    if -0x8000 <= lo and hi <= 0x7FFF:
+        return torch.from_numpy(arr.astype(np.int16)), False, 0
+    if hi - lo <= 0xFFFF:
+        bits = (arr.astype(np.int64) - lo).astype(np.uint16).view(np.int16)
+        return torch.from_numpy(bits), True, -lo
+    raise ValueError(f"delta table values span [{lo}, {hi}], more than 16 "
+                     f"bits hold (the kernels keep a 16-bit table in shared "
+                     f"memory)")
+
+
+def widen_delta(bits: torch.Tensor, unsigned: bool = False,
+                bias: int = 0) -> torch.Tensor:
+    """The delta table D that narrow_delta's (bits, unsigned, bias)
+    stands for, as the plain versions take it: ``bits`` itself for an
+    int16 table, else int32."""
+    if not unsigned and not bias:
+        return bits
+    return _widen(bits, unsigned) - bias
+
+
+def delta_table(design: str, signed: bool, device):
+    """get_delta_lut narrowed by narrow_delta, on ``device`` (cached per
+    device): (int16 tensor, unsigned, bias), the delta_matmul and
+    fused_qdot wrappers' ``dlut, unsigned=, bias=``."""
     key = ("delta_t", design, signed, str(torch.device(device)))
     if key not in _LUT_CACHE:
-        _LUT_CACHE[key] = torch.from_numpy(
-            get_delta_lut(design, signed)).to(device)
+        bits, unsigned, bias = narrow_delta(get_delta_lut(design, signed))
+        _LUT_CACHE[key] = (bits.to(device), unsigned, bias)
     return _LUT_CACHE[key]
 
 
@@ -149,7 +188,8 @@ def _check_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _check_table(name: str, dlut: torch.Tensor) -> None:
+def _check_table(name: str, dlut: torch.Tensor, unsigned: bool, bias: int,
+                 signed: bool) -> None:
     # plain ifs here and in delta_matmul: a message is formatted only when
     # a check fails (calibration makes ~26k calls a run, each a 10-40 µs
     # kernel; formatting every message cost the host about 10 µs a call)
@@ -158,9 +198,14 @@ def _check_table(name: str, dlut: torch.Tensor) -> None:
                          f"{tuple(dlut.shape)}")
     if dlut.dtype != torch.int16:
         raise ValueError(
-            f"{name}: the CUDA kernel takes an int16 delta table (128 KiB "
-            f"in shared memory); got {dlut.dtype} — design 'initial' needs "
-            f"int32 (256 KiB), which does not fit a block's shared memory")
+            f"{name}: the CUDA kernel takes a delta table of 16-bit entries "
+            f"(int16 bits, 128 KiB in shared memory), as ops.narrow_delta "
+            f"gives it; got {dlut.dtype}")
+    if (unsigned and signed) or (bias and not unsigned):
+        raise ValueError(
+            f"{name}: a biased table (unsigned, bias {bias}) is taken with "
+            f"unsigned operands only, and a bias only with unsigned bits "
+            f"(narrow_delta gives every signed design an int16 table)")
     if dlut.data_ptr() % 16:
         raise ValueError(f"{name}: the delta table must be 16-byte aligned "
                          f"(it is copied into shared memory in 16-byte "
@@ -182,14 +227,19 @@ def _wrong_device(name: str, t: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def delta_matmul(a: torch.Tensor, b: torch.Tensor, dlut: torch.Tensor,
-                 offset: int = 0) -> torch.Tensor:
+                 offset: int = 0, *, unsigned: bool = False,
+                 bias: int = 0) -> torch.Tensor:
     """S[m,n] = sum_k ( a[m,k]*b[k,n] + D[(a+off)&255, (b+off)&255] ), int32.
 
     a: (M, K) int32; b: (K, N) uint8 (offset 0) or int8 (offset 128) on
-    the card, any integer dtype on the CPU; dlut: (256, 256) delta table.
+    the card, any integer dtype on the CPU.  (dlut, unsigned, bias): the
+    (256, 256) delta table D as narrow_delta narrows it (the card takes
+    only that form; the CPU also takes D itself, int16 or int32, with the
+    defaults).
     """
     if a.device.type == "cpu":
-        return ref.delta_matmul_ref(a, b, dlut, offset)
+        return ref.delta_matmul_ref(a, b, widen_delta(dlut, unsigned, bias),
+                                    offset)
     if a.device.type != "cuda":
         raise _wrong_device("delta_matmul", a)
     name = "delta_matmul"
@@ -202,15 +252,16 @@ def delta_matmul(a: torch.Tensor, b: torch.Tensor, dlut: torch.Tensor,
         raise ValueError(f"{name}: b must be uint8 with offset 0 or int8 "
                          f"with offset 128, got {b.dtype} with offset "
                          f"{offset}")
-    _check_table(name, dlut)
+    signed = b.dtype == torch.int8
+    _check_table(name, dlut, unsigned, bias, signed)
     _check_cuda(name, a, b, dlut)
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     from ._build import kernel
     err = kernel(name)(a.data_ptr(), b.data_ptr(), dlut.data_ptr(),
-                       out.data_ptr(), M, K, N, offset,
-                       int(b.dtype == torch.int8), _stream())
+                       out.data_ptr(), M, K, N, offset, int(signed),
+                       int(bool(unsigned)), int(bias), _stream())
     _raise_cuda(name, err)
     LAUNCHES[name] += 1
     return out
@@ -341,8 +392,9 @@ def _approx_matmul_2d(a2, b, design, backend, rank, signed):
         F, G = factor_tables(design, rank, signed, a2.device)
         return residual_matmul(a2, b, F, G, offset=off)
     if backend in DELTA_BACKENDS:
-        return delta_matmul(a2, b, delta_table(design, signed, a2.device),
-                            offset=off)
+        dlut, unsigned, bias = delta_table(design, signed, a2.device)
+        return delta_matmul(a2, b, dlut, offset=off, unsigned=unsigned,
+                            bias=bias)
     raise ValueError(f"unknown backend {backend!r}; expected one of "
                      f"{LUT_BACKENDS + RESIDUAL_BACKENDS + DELTA_BACKENDS}"
                      f" or 'exact'")
@@ -463,16 +515,19 @@ def fused_scratch_layout(M: int, K: int, N: int) -> dict:
 def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
                       scal: torch.Tensor, ntab: torch.Tensor,
                       comp_r: torch.Tensor, *, signed: bool = False,
-                      compensate: bool = False, return_int: bool = False):
+                      compensate: bool = False, return_int: bool = False,
+                      unsigned: bool = False, bias: int = 0):
     """The fused kernel on packed operands: float x (M, K) @ prequantized
-    qw (K, N) -> float32 (M, N).  ``return_int`` also returns the
-    quantized activations (M, K) and the int32 accumulator (M, N).  On
-    the card one call is two launches, the quantize pre-pass and the
-    gather (split-K at M <= 4), into a scratch allocated here
+    qw (K, N) -> float32 (M, N).  (dlut, unsigned, bias): the delta table
+    as narrow_delta narrows it (see delta_matmul).  ``return_int`` also
+    returns the quantized activations (M, K) and the int32 accumulator
+    (M, N).  On the card one call is two launches, the quantize pre-pass
+    and the gather (split-K at M <= 4), into a scratch allocated here
     (fused_scratch_layout); it counts as one launch of the kernel."""
     offset = 128 if signed else 0
     if x.device.type == "cpu":
-        return ref.fused_qdot_ref(x, qw, dlut, scal, ntab, comp_r,
+        return ref.fused_qdot_ref(x, qw, widen_delta(dlut, unsigned, bias),
+                                  scal, ntab, comp_r,
                                   offset=offset, asym=not signed,
                                   compensate=compensate,
                                   return_int=return_int)
@@ -493,7 +548,7 @@ def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
         raise ValueError(f"{name}: qw must be {want} for "
                          f"{'sym_i8' if signed else 'asym_u8'}, got "
                          f"{qw.dtype}")
-    _check_table(name, dlut)
+    _check_table(name, dlut, unsigned, bias, signed)
     if not (scal.dtype == torch.float32 and scal.numel() >= 3):
         raise ValueError(f"{name}: scal must be float32 with >= 3 entries")
     if not (ntab.dtype == torch.float32 and tuple(ntab.shape) == (4, N)):
@@ -514,7 +569,8 @@ def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
                        out.data_ptr(), qx.data_ptr() if return_int else None,
                        acc.data_ptr() if return_int else None,
                        scratch.data_ptr(), nbytes, M, K, N,
-                       int(not signed), int(compensate), _stream())
+                       int(not signed), int(compensate), int(bool(unsigned)),
+                       int(bias), _stream())
     _raise_cuda(name, err)
     LAUNCHES[name] += 1
     return (out, qx, acc) if return_int else out

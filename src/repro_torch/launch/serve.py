@@ -11,9 +11,16 @@ Quantization precomputation ladder (quant/linear.py):
                      scales; the backend is then 'fused': one kernel
                      quantizes, multiplies and dequantizes each projection
   --clip MODE        activation-range calibrator: minmax | pct999 | mse
---calibrate implies --prequantize.  With static scales the attention
-wq|wk|wv and mlp gate|up projections are merged (--no-fuse-proj keeps
-them apart).
+  --plan FILE        serve a per-layer design plan (calib.plan, ``python
+                     -m repro_torch.calib``): each layer's projections
+                     gather their own design's delta table, a row of the
+                     site's bank
+--calibrate and --plan imply --prequantize and the 'fused' backend (the
+unfused projections, without static scales, take delta_matmul).  The
+order is prequantize -> calibrate -> apply_plan -> attach_comp_cols ->
+fuse_projections.  With prequantized weights the attention wq|wk|wv and
+mlp gate|up projections are merged where their tables agree
+(--no-fuse-proj keeps them apart).
 
 Timing is steady state: the kernels are built and both steps warmed up
 first (reported on their own lines), and each timed region starts and
@@ -47,7 +54,7 @@ def prepare_params(params, cfg, qcfg, args, device="cuda"):
     4242), so enabling --calibrate never shifts the serving prompts."""
     from ..quant import fuse_projections, prequantize_weights
     notes = []
-    if not (args.prequantize or args.calibrate):
+    if not (args.prequantize or args.calibrate or args.plan):
         return params, notes
     params = prequantize_weights(params, qcfg)
     notes.append("prequantized weights")
@@ -64,7 +71,14 @@ def prepare_params(params, cfg, qcfg, args, device="cuda"):
         params = apply_calibration(params, table, clip=args.clip)
         notes.append(f"static act scales ({len(table.sites)} sites, "
                      f"{args.calibrate} calib batches, clip={args.clip})")
+    if args.plan:
+        from ..calib import DesignPlan, apply_plan
+        plan = DesignPlan.load(args.plan)
+        params = apply_plan(params, plan, qcfg)
+        notes.append(f"design plan {args.plan} (histogram "
+                     f"{plan.histogram()})")
     if qcfg.backend == "fused" and qcfg.compensate:
+        # after apply_plan: its wrappers carry their own comp_col
         from ..calib import attach_comp_cols
         params = attach_comp_cols(params, qcfg)
         notes.append("fused backend (cached compensation colsums)")
@@ -100,6 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill", default="fused", choices=["fused", "loop"],
                     help="'fused' = one full-sequence M=B*S pass, 'loop' = "
                          "token by token through the decode step")
+    ap.add_argument("--plan", default=None, metavar="FILE",
+                    help="DesignPlan JSON: serve its per-layer designs "
+                         "(implies --prequantize and the fused backend)")
     ap.add_argument("--no-fuse-proj", action="store_true",
                     help="keep wq/wk/wv and w_gate/w_up as separate calls")
     ap.add_argument("--device", default="cuda")
@@ -111,7 +128,7 @@ class ServeResult:
     out: np.ndarray            # (B, gen_len) generated ids
     logits: np.ndarray         # last step's logits
     t_build: float             # kernel build (0 on the CPU or when cached)
-    t_prepare: float           # prequantize + calibrate + install
+    t_prepare: float           # prequantize + calibrate + plan + install
     t_warmup: float            # first prefill + decode step
     t_prefill: float           # steady state, seconds
     t_decode: float            # steady state, seconds for gen_len-1 steps
@@ -125,7 +142,8 @@ def run(args) -> ServeResult:
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(
         args.arch)
     qcfg = QuantConfig(design=args.design,
-                       backend="fused" if args.calibrate else "delta",
+                       backend=("fused" if args.calibrate or args.plan
+                                else "delta"),
                        mode=args.quant_mode, inference=True)
     B = args.requests
     s_max = args.prompt_len + args.gen_len

@@ -19,9 +19,14 @@ multiplier.
   * data: batch(step) is stateless, so there is no loader state;
   * stragglers: a step slower than ``--straggler-factor`` x the EWMA of
     step times is reported.
+  * ``--plan FILE``: QAT through a per-layer design plan (calib.plan):
+    the raw weights are wrapped inside the loss with the plan's bank
+    index and compensation tables (make_plan_injector), so every
+    projection runs forward through its layer's design on the
+    delta_matmul kernel, whatever ``--backend`` says.
 Float32 products run at full float32 precision (TF32 off), as the
-reference's HIGHEST precision.  ``--plan`` and ``--mesh`` are not ported
-and are refused.
+reference's HIGHEST precision.  ``--mesh`` is not ported and is
+refused.
 """
 from __future__ import annotations
 
@@ -53,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quant-mode", default="asym_u8",
                     choices=["asym_u8", "sym_i8"])
     ap.add_argument("--plan", default=None, metavar="FILE",
-                    help="not ported: refused")
+                    help="DesignPlan JSON: QAT through its per-layer "
+                         "designs")
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -72,9 +78,6 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.plan is not None:
-        ap.error("--plan is not ported yet (QAT through a per-layer design "
-                 "plan needs the plan install and delta-table banks)")
     if args.mesh is not None:
         ap.error("--mesh is not ported yet (the port trains on one card)")
     return args
@@ -122,9 +125,17 @@ def run(args: argparse.Namespace) -> TrainResult:
                                        {"params": params, "opt": opt_state})
         params, opt_state = restored["params"], restored["opt"]
         print(f"[train] restored checkpoint at step {start}")
+    params_transform = None
+    if args.plan:
+        from ..calib import DesignPlan, make_plan_injector
+        plan = DesignPlan.load(args.plan)
+        params_transform = make_plan_injector(params, plan, qcfg)
+        print(f"[train] QAT through design plan {args.plan} (histogram "
+              f"{plan.histogram()})")
     step_fn = make_train_step(cfg, qcfg, ocfg,
                               microbatches=args.microbatches,
-                              remat=not args.smoke)
+                              remat=not args.smoke,
+                              params_transform=params_transform)
     res = TrainResult([], [], [], start, 0, params, opt_state)
     ewma = None
     for step in range(start, args.steps):

@@ -131,10 +131,14 @@ def _unstack(tree, n: int):
     """The n per-layer views of a stacked params tree, as a list of
     trees.  torch.unbind gives every view's gradient back to the stacked
     (n_units, ...) leaf in one stack, not one leaf-sized select gradient
-    per layer."""
+    per layer; a QuantizedWeight's layer slice takes its master weights
+    from the same unbind."""
     if isinstance(tree, dict):
         per = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: per[k][i] for k in per} for i in range(n)]
+    if isinstance(tree, QuantizedWeight):
+        ws = torch.unbind(tree.w, 0)
+        return [tree.layer(i).replace(w=ws[i]) for i in range(n)]
     return list(torch.unbind(tree, 0))
 
 
@@ -145,15 +149,24 @@ def _train_stack(params, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
     activations are recomputed in the backward pass, as jax.checkpoint
     does under the reference's remat_scope; the dynamic quantizers are
     deterministic, so the recompute reproduces every quantized
-    operand."""
+    operand.  An active calibration observer gets each layer's index,
+    as in _decoder_stack."""
     _check_dense(cfg)
+    obs = get_observer()
 
     def layer(lp, h):
         return _block_apply(lp, h, positions, cfg, qcfg)[0]
 
     for slot, _ in enumerate(cfg.pattern):
-        for lp in _unstack(params["units"][slot], cfg.n_units):
-            if remat:
+        for i, lp in enumerate(_unstack(params["units"][slot],
+                                        cfg.n_units)):
+            if obs is not None:
+                obs.push(i)
+                try:
+                    x = layer(lp, x)
+                finally:
+                    obs.pop()
+            elif remat:
                 # the layer draws no random numbers: no RNG state to keep
                 x = torch_checkpoint.checkpoint(
                     functools.partial(layer, lp), x, use_reentrant=False,

@@ -15,7 +15,11 @@ stacked-layer axes of the params tree kept on every field:
      equal the reference's int32 ones at a quarter of the bytes.
   2. static activation scales (``calib``: observe -> table ->
      ``apply_calibration``).
-  3. ``attach_comp_cols`` (calib.static) and ``fuse_projections``.
+  3. per-layer design plans (``calib.plan.apply_plan``): each site's
+     distinct delta tables in a process-level bank
+     (``register_dlut_bank``), the wrapper carrying each layer's bank
+     index and the design's compensation tables.
+  4. ``attach_comp_cols`` (calib.static) and ``fuse_projections``.
 
 Calibration observers: ``calib.observe`` installs a process-global
 observer via ``set_observer``; qdot reports (x, site, cfg) for every
@@ -44,8 +48,42 @@ _OBSERVER = None
 
 _STALE_WARNED: set = set()
 
+# Delta-table banks (calib.plan): per-site stacks of the distinct int16
+# delta tables the site's layers use, registered at plan install.  Keys
+# are content-addressed (path + mode + design list), so re-registering is
+# idempotent.  key -> {device: (n, 256, 256) int16 tensor}
+_DLUT_BANKS: dict = {}
+
 _TENSOR_FIELDS = ("w", "q", "scale", "zp", "colsum", "act_scale", "act_zp",
                   "dlut", "comp_r", "comp_c", "comp_mu", "comp_col")
+
+
+def register_dlut_bank(key: str, bank: torch.Tensor) -> None:
+    """Register a site's (n, 256, 256) int16 delta-table bank, on the
+    bank tensor's device.  A wrapper then carries only the per-layer index
+    into it (QuantizedWeight.dlut, with dlut_bank=key)."""
+    bank = bank.reshape(-1, 256, 256).contiguous()
+    if bank.dtype != torch.int16:
+        raise ValueError(f"delta-table bank {key!r} must be int16, got "
+                         f"{bank.dtype}")
+    _DLUT_BANKS[key] = {str(bank.device): bank}
+
+
+def get_dlut_bank(key: str, device="cpu") -> torch.Tensor:
+    """The bank registered under ``key``, on ``device`` (copied there
+    from another device's once, then cached)."""
+    if key not in _DLUT_BANKS:
+        raise KeyError(
+            f"delta-table bank {key!r} is not registered in this process "
+            f"({len(_DLUT_BANKS)} banks known).  QuantizedWeight trees "
+            f"carrying bank indices are process-local: re-run "
+            f"calib.plan.apply_plan (or make_plan_injector) to install "
+            f"the plan here.")
+    per_dev = _DLUT_BANKS[key]
+    dev = str(torch.device(device))
+    if dev not in per_dev:
+        per_dev[dev] = next(iter(per_dev.values())).to(dev)
+    return per_dev[dev]
 
 
 def set_observer(obs) -> None:
@@ -73,14 +111,21 @@ class QuantizedWeight:
                     (..., 1, 1), per-column (..., 1, N) when merged
       colsum        colsum(q) float32 (..., 1, N), the asym_u8 cross term
       act_scale/act_zp  calibrated static activation quantizer (...,)
-      dlut, comp_r/comp_c/comp_mu, dlut_bank
-                    per-layer design plans (not ported yet)
+      dlut          per-layer design plan (calib.plan): the layer's int32
+                    index (...,) into the site's delta-table bank named by
+                    ``dlut_bank`` (register_dlut_bank).  Kept on the host
+                    whatever the weights' device: the layer's table is a
+                    row of the bank, chosen there, so no step syncs
+      comp_r/comp_c/comp_mu
+                    per-layer mean-field compensation tables of the
+                    plan's designs (256,), (256,), () per layer
       comp_col      cached colsum of the column compensation table over
                     q, (..., 1, N) f32 (calib.static.attach_comp_cols)
       mode          QuantConfig.mode the cache was built for
       path          the weight's params-tree path ("units.0.attn.wq"),
                     the calibration site name
       per_channel   per-column scales (set by fuse_projections)
+      dlut_bank     registry key of the site's delta-table bank
       merged        fuse_projections output
     """
     w: torch.Tensor
@@ -225,9 +270,37 @@ def _mean_field_device(design: str, signed: bool, device):
 
 
 def _site_comp_tables(pre, cfg: QuantConfig, signed: bool, device):
+    """Compensation tables: the per-layer ones a design plan attached
+    (matching the layer's delta table) when present, else the serving
+    design's static tables."""
     if pre is not None and pre.comp_r is not None:
-        raise NotImplementedError("per-layer design plans are not ported")
+        return pre.comp_r, pre.comp_c, pre.comp_mu.reshape(()).float()
     return _mean_field_device(cfg.design, signed, device)
+
+
+def _plan_table(pre, device) -> torch.Tensor:
+    """A planned layer's delta table: row ``pre.dlut`` of the site's
+    bank on ``device``, a view (on the card a contiguous 128 KiB table,
+    16-byte aligned, since rows sit 131,072 bytes apart)."""
+    if pre.dlut_bank is None:
+        raise ValueError(f"site {pre.path!r}: a design plan's delta tables "
+                         f"are carried as a bank index (calib.plan.apply_plan"
+                         f" or make_plan_injector), not as a table")
+    return get_dlut_bank(pre.dlut_bank, device)[int(pre.dlut)]
+
+
+def _delta_prod(qx, qw, pre, signed: bool) -> torch.Tensor:
+    """Per-layer mixed-design product: the exact integer product plus
+    the gather of the layer's OWN delta table (a row of the site's bank),
+    through the delta_matmul kernel.  float32 (..., N)."""
+    K = qx.shape[-1]
+    a2 = qx.reshape(-1, K)
+    if a2.is_cuda:
+        a2 = a2.to(torch.int32).contiguous()
+        qw = qw.to(torch.int8 if signed else torch.uint8).contiguous()
+    out = ops.delta_matmul(a2, qw, _plan_table(pre, qx.device),
+                           offset=128 if signed else 0)
+    return out.float().reshape(*qx.shape[:-1], qw.shape[-1])
 
 
 def _wparam(p, per_channel: bool):
@@ -249,17 +322,11 @@ def _use_fused(cfg: QuantConfig, pre) -> bool:
             and pre.q is not None and pre.act_scale is not None)
 
 
-def _check_no_plan(pre) -> None:
-    if pre is not None and (pre.dlut is not None
-                            or pre.dlut_bank is not None):
-        raise NotImplementedError("per-layer design plans (--plan) are not "
-                                  "ported yet")
-
-
 def _fused_operands(pre, cfg: QuantConfig, signed: bool):
-    """The fused kernel's delta table and packed operand tables for one
-    (per-layer) wrapper, built once and memoized on it."""
-    key = ("fused", cfg.design, signed, cfg.compensate)
+    """The fused kernel's delta table (ops.delta_table's form: the serving
+    design's, or the plan's bank row for this layer) and packed operand
+    tables for one (per-layer) wrapper, built once and memoized on it."""
+    key = ("fused", cfg.design, signed, cfg.compensate, pre.dlut_bank)
     if key in pre._memo:
         return pre._memo[key]
     dev = pre.q.device
@@ -278,18 +345,22 @@ def _fused_operands(pre, cfg: QuantConfig, signed: bool):
         zw=_wparam(pre.zp, pre.per_channel),
         colsum=(pre.colsum.reshape(-1) if pre.colsum is not None else None),
         comp_r=comp_r, comp_col=comp_col, comp_mu=comp_mu)
-    out = (ops.delta_table(cfg.design, signed, dev), scal, ntab, cr)
+    table = ((_plan_table(pre, dev), False, 0) if pre.dlut is not None
+             else ops.delta_table(cfg.design, signed, dev))
+    out = (table, scal, ntab, cr)
     pre._memo[key] = out
     return out
 
 
 def _qdot_fused(x, pre, cfg: QuantConfig, signed: bool):
     """The fused kernel on a wrapper's memoized operands."""
-    dlut, scal, ntab, cr = _fused_operands(pre, cfg, signed)
+    (dlut, unsigned, bias), scal, ntab, cr = _fused_operands(pre, cfg,
+                                                             signed)
     K = x.shape[-1]
     out = ops.fused_qdot_packed(x.reshape(-1, K).contiguous(), pre.q, dlut,
                                 scal, ntab, cr, signed=signed,
-                                compensate=cfg.compensate)
+                                compensate=cfg.compensate,
+                                unsigned=unsigned, bias=bias)
     return out.reshape(*x.shape[:-1], pre.q.shape[-1])
 
 
@@ -306,7 +377,6 @@ def qdot(x: torch.Tensor, w, cfg: QuantConfig) -> torch.Tensor:
         if pre.mode != cfg.mode:
             _warn_stale(pre, cfg)
             pre = None
-    _check_no_plan(pre)
     if _OBSERVER is not None and pre is not None:
         _OBSERVER.record(x, pre, cfg)
     if not cfg.enabled:
@@ -359,7 +429,10 @@ def _qdot_asym(x, w, cfg, pre=None):
         qw, sw, zw = quantize_uint8(w, _weight_axis(w))
         colsum = None
     K = x.shape[-1]
-    prod = ops.approx_matmul(qx, qw, cfg.design, cfg.backend, cfg.rank)
+    if pre is not None and pre.dlut is not None:
+        prod = _delta_prod(qx, qw, pre, signed=False)
+    else:
+        prod = ops.approx_matmul(qx, qw, cfg.design, cfg.backend, cfg.rank)
     if cfg.compensate:
         mu_r, mu_c, mu = _site_comp_tables(pre, cfg, False, x.device)
         comp = (mu_r[qx.long()].sum(-1, keepdim=True)
@@ -386,8 +459,11 @@ def _qdot_signed(x, w, cfg, pre=None):
     else:
         qw, sw = quantize_int8(w, _weight_axis(w))
     K = x.shape[-1]
-    prod = ops.approx_matmul(qx, qw, cfg.design, cfg.backend, cfg.rank,
-                             signed=True)
+    if pre is not None and pre.dlut is not None:
+        prod = _delta_prod(qx, qw, pre, signed=True)
+    else:
+        prod = ops.approx_matmul(qx, qw, cfg.design, cfg.backend, cfg.rank,
+                                 signed=True)
     if cfg.compensate:
         mu_r, mu_c, mu = _site_comp_tables(pre, cfg, True, x.device)
         comp = (mu_r[qx.long() + 128].sum(-1, keepdim=True)
@@ -427,8 +503,16 @@ def _merge_group(parts, name: str):
     if acts[0] is not None and not all(torch.equal(a, acts[0])
                                        for a in acts[1:]):
         return None
+    # per-layer design plans: mergeable only when every member gathers
+    # the same delta table on every layer (one table per fused call)
     if any(p.dlut is not None for p in parts):
-        return None
+        if any(p.dlut is None or p.dlut_bank is None for p in parts):
+            return None
+        for li in range(int(np.prod(lead)) if lead else 1):
+            tabs = [get_dlut_bank(p.dlut_bank, p.w.device)[
+                int(p.dlut.reshape(-1)[li])] for p in parts]
+            if not all(torch.equal(t, tabs[0]) for t in tabs[1:]):
+                return None
     ns = [int(p.w.shape[-1]) for p in parts]
     comp_cols = [p.comp_col for p in parts]
     merged_comp_col = (torch.cat(comp_cols, -1)
@@ -446,6 +530,8 @@ def _merge_group(parts, name: str):
         colsum=(torch.cat([p.colsum for p in parts], -1)
                 if base.colsum is not None else None),
         act_scale=base.act_scale, act_zp=base.act_zp,
+        dlut=base.dlut, dlut_bank=base.dlut_bank,
+        comp_r=base.comp_r, comp_c=base.comp_c, comp_mu=base.comp_mu,
         comp_col=merged_comp_col, mode=base.mode,
         path=(prefix + "." if prefix else "") + name,
         per_channel=True, merged=True)
@@ -455,8 +541,10 @@ def fuse_projections(params):
     """Serving-time projection merging over the decoder units: attention
     wq|wk|wv -> wqkv and mlp w_gate|w_up -> w_gateup, concatenated along
     the output axis (7 qdot calls per layer become 4).  Groups that are
-    not safely mergeable are left untouched.  Apply after prequantize ->
-    calibrate -> comp cols (launch.serve does, unless --no-fuse-proj)."""
+    not safely mergeable are left untouched (among them plan layers
+    whose members gather different tables).  Apply after prequantize ->
+    calibrate -> plan -> comp cols (launch.serve does, unless
+    --no-fuse-proj)."""
     def visit(node):
         if isinstance(node, dict):
             node = {k: visit(v) for k, v in node.items()}

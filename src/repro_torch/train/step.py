@@ -15,10 +15,17 @@ from . import optimizer as opt_mod
 from .optimizer import OptConfig, tree_leaves, tree_map, tree_unflatten
 
 
-def make_loss_fn(cfg: ArchConfig, qcfg: QuantConfig, remat: bool = False):
+def make_loss_fn(cfg: ArchConfig, qcfg: QuantConfig, remat: bool = False,
+                 params_transform=None):
     """(params, batch) -> (loss, metrics): forward_train, with every
-    decoder layer recomputed in the backward pass when ``remat``."""
+    decoder layer recomputed in the backward pass when ``remat``.
+    ``params_transform``: an optional function applied to the params
+    inside the loss (calib.plan.make_plan_injector, wrapping the raw
+    weights with the plan's per-layer tables); autograd sees through it,
+    so the gradients and the optimizer state stay on the raw leaves."""
     def loss_fn(params, batch):
+        if params_transform is not None:
+            params = params_transform(params)
         return T.forward_train(params, batch, cfg, qcfg, remat=remat)
     return loss_fn
 
@@ -35,14 +42,16 @@ def _value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, ocfg: OptConfig,
-                    microbatches: int = 1, remat: bool = True):
+                    microbatches: int = 1, remat: bool = True,
+                    params_transform=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     With ``microbatches`` > 1 the batch is split along its first axis and
     the gradients summed over the pieces in order, then divided by the
     count (the reference's lax.scan, as a loop).  The optimizer updates
-    the params and its state in place (optimizer.apply)."""
-    loss_fn = make_loss_fn(cfg, qcfg, remat)
+    the params and its state in place (optimizer.apply).
+    ``params_transform``: see make_loss_fn."""
+    loss_fn = make_loss_fn(cfg, qcfg, remat, params_transform)
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:

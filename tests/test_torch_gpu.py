@@ -426,3 +426,139 @@ def test_smoke_train_step_matches_cpu_launch_by_launch(cuda, backend, mode):
     assert ops.LAUNCHES[name] == sh.stats[name]["calls"]
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(
         metrics["grad_norm"])
+
+
+# ---------------------------------------------------------------------------
+# the biased table ('initial', asym_u8) and plan banks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("signed,design", [(False, "initial"),
+                                           (False, "design2"),
+                                           (True, "design2")])
+def test_exhaustive_sweep_through_both_kernels_and_schedules(cuda, signed,
+                                                             design):
+    """The 65,536 operand pairs through delta_matmul and fused_qdot, on
+    the tile schedule (256 rows) and split-K (4 rows a launch): every
+    launch bit-exact to its plain version and to the product table.
+    'initial' asym_u8 takes the biased uint16 table."""
+    assert check.check_sweeps(design, signed, cuda) == 260
+
+
+@pytest.mark.parametrize("M", [1, 3, 4, 5, 37])
+@pytest.mark.parametrize("K", [33, 2048, 6144])
+def test_biased_initial_table_matches_plain(cuda, M, K):
+    """Random operands through the biased table: the K * bias subtraction
+    on the split-K schedule (each group's share per chunk) and the tile
+    schedule (at the store / in the epilogue), K ragged against both."""
+    case = check.delta_case(M, K, 131, False, M + K, cuda, design="initial")
+    assert case["unsigned"] and case["bias"] == 48744
+    check.check_delta(case)
+    check.check_fused(check.fused_case(M, K, 131, False, M + K, cuda,
+                                       design="initial"))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("M", [4, 256])
+def test_bank_rows_equal_the_table_alone(cuda, signed, M):
+    """A 3-table int16 bank: each row, a view into the bank, gives both
+    kernels the same result as that table passed alone."""
+    assert check.check_bank_rows(M, 2048, 1024, signed, M, cuda) == 12
+
+
+def test_wrappers_refuse_a_biased_table_where_it_is_not_taken(cuda):
+    case = check.delta_case(4, 64, 32, True, 0, cuda)
+    with pytest.raises(ValueError, match="biased table"):
+        ops.delta_matmul(**dict(case, unsigned=True, bias=5))
+    f = check.fused_case(4, 64, 32, True, 0, cuda)
+    with pytest.raises(ValueError, match="biased table"):
+        ops.fused_qdot_packed(**dict(f, unsigned=True, bias=5))
+    u = check.delta_case(4, 64, 32, False, 0, cuda)
+    with pytest.raises(ValueError, match="bias only with unsigned"):
+        ops.delta_matmul(**dict(u, bias=5))
+
+
+@pytest.mark.parametrize("calibrate", ["0", "1"])
+def test_smoke_initial_serve_matches_cpu_launch_by_launch(cuda, calibrate):
+    """serve --design initial --quant-mode asym_u8 on the card, on the
+    'delta' backend (uncalibrated) and the 'fused' one: every launch held
+    against its plain version on the CPU."""
+    from repro_torch.launch import serve
+    argv = ["--smoke", "--requests", "2", "--prompt-len", "5", "--gen-len",
+            "4", "--calibrate", calibrate, "--design", "initial",
+            "--quant-mode", "asym_u8"]
+    with check.CpuShadow() as sh:
+        serve.run(serve.build_parser().parse_args(argv))
+    assert sh.stats["delta_matmul"]["calls"] > 0
+    assert sh.stats["decode_attention"]["calls"] > 0
+    assert (sh.stats["fused_qdot_packed"]["calls"] > 0) == (calibrate == "1")
+
+
+@pytest.fixture
+def smoke_plan(cuda, tmp_path, request):
+    """A plan made by the port's CLI on the card at smoke size, with
+    layer 1 moved to design2 so that every bank holds two tables."""
+    from repro_torch.calib import DesignPlan, plan
+    mode = request.param
+    path = str(tmp_path / "plan.json")
+    made = plan.main(["--smoke", "--batches", "1", "--quant-mode", mode,
+                      "--no-recompose16", "--out", path])
+    for key in made.layers:
+        if key.endswith("@1"):
+            made.layers[key] = "design2"
+    if len(set(made.layers.values())) < 2:
+        for key in made.layers:
+            if key.endswith("@0"):
+                made.layers[key] = "design1"
+    made.save(path)
+    return mode, path, DesignPlan.load(path)
+
+
+@pytest.mark.parametrize("smoke_plan", ["asym_u8", "sym_i8"],
+                         indirect=True)
+def test_smoke_planned_serve_matches_cpu_launch_by_launch(smoke_plan):
+    """serve --plan --calibrate 1 at smoke size: every launch held against
+    its plain version on the CPU, the fused kernel reading two tables."""
+    from repro_torch.launch import serve
+    mode, path, _ = smoke_plan
+    tables = set()
+    argv = ["--smoke", "--requests", "2", "--prompt-len", "5", "--gen-len",
+            "4", "--calibrate", "1", "--quant-mode", mode, "--plan", path]
+    with check.CpuShadow() as sh:
+        shadow = ops.fused_qdot_packed
+
+        def spy(x, qw, dlut, *a, **k):
+            tables.add(dlut.data_ptr())
+            return shadow(x, qw, dlut, *a, **k)
+        ops.fused_qdot_packed = spy      # CpuShadow's exit restores it
+        serve.run(serve.build_parser().parse_args(argv))
+    assert all(st["calls"] > 0 for st in sh.stats.values()), sh.stats
+    assert len(tables) >= 2
+
+
+@pytest.mark.parametrize("smoke_plan", ["sym_i8"], indirect=True)
+def test_smoke_planned_train_step_matches_cpu_launch_by_launch(smoke_plan):
+    """QAT through a plan at smoke size: every projection forward is a
+    delta_matmul launch on its layer's bank row, held against the CPU."""
+    from repro_torch import configs
+    from repro_torch.calib import make_plan_injector
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    mode, _, plan = smoke_plan
+    cuda = torch.device("cuda")
+    cfg = configs.get_smoke("qwen3-1.7b")
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           device=cuda)
+    q = QuantConfig(backend="xla", mode=mode)
+    ocfg = OptConfig()
+    step = make_train_step(cfg, q, ocfg, remat=True,
+                           params_transform=make_plan_injector(params, plan,
+                                                               q))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 17), generator=g)
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    with check.CpuShadow(("delta_matmul",)) as sh:
+        _, _, metrics = step(params, opt_mod.init(params, ocfg), batch)
+    assert sh.stats["delta_matmul"]["calls"] == 7 * cfg.n_layers * 2
+    assert torch.isfinite(metrics["loss"])

@@ -24,6 +24,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     mods = _port_modules()
     assert "repro_torch.launch.train" in mods
     assert "repro_torch.train.optimizer" in mods
+    for m in ("calib.plan", "calib.__main__", "core.cost",
+              "signed.recompose"):
+        assert "repro_torch." + m in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -526,7 +526,9 @@ def test_launcher_trains_and_restarts(tmp_path):
     assert np.isfinite(res.losses[0]) and np.isfinite(res.grad_norms[0])
 
 
-@pytest.mark.parametrize("flag", [["--plan", "plan.json"],
+# --plan is ported (tests/test_torch_plan.py); with --mesh beside it the
+# launcher still refuses, before it reads the plan
+@pytest.mark.parametrize("flag", [["--plan", "plan.json", "--mesh", "host"],
                                   ["--mesh", "host"]])
 def test_launcher_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit):
