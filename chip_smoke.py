@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and design-plan paths
-on one NVIDIA card and check them.
+"""Drive the PyTorch/CUDA port's serving, training and design-plan paths,
+and the options of launch.serve, on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,8 @@ error and carries on:
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
-               no plain version may see a CUDA tensor
+               no plain version may see a CUDA tensor (the asym_u8 run's
+               calibration table is kept for phase 12)
   5. parity    the serving path at 2 layers of full width, same weights,
                table and prompts: every kernel launch of the card's run
                held against its plain version on the CPU from the same
@@ -57,7 +58,11 @@ error and carries on:
                normal); decode_attention with and without the append at
                the path's shape and at long context (S_max 4096);
                delta_matmul also at the planned QAT step's shapes
-               (M = 512, sym_i8: ``plan_qat`` in the JSON)
+               (M = 512, sym_i8: ``plan_qat`` in the JSON) and at the
+               quantized unembed's (K = 2048, N = 151,936, M = 4 and 256:
+               ``unembed``); lut_matmul and residual_matmul also at the
+               merged projections' serve shapes (M = 4 and 256:
+               ``serve``)
   9. trace     torch.profiler over full-width decode steps of the serve
                path: kernel launches per step by name, the device's busy
                share of the traced window, host-side op counts
@@ -73,6 +78,19 @@ error and carries on:
                both modes, served with every launch held against its
                plain version on the CPU, and one QAT step through it with
                every delta_matmul launch held likewise
+ 12. serve options  rmsnorm gives each row of a batch its value alone;
+               at full width: (a) --continuous 10 over 4 slots (prompt
+               64, gen 16) on phase 4's asym_u8 tree (prepared again from
+               its calibration table), each request equal
+               to itself served alone (a B = 1 prefill and decode steps);
+               (b) --per-channel --calibrate 1, sym_i8; (c) --prequantize
+               --backend xla and residual, asym_u8 (112 lut_matmul /
+               residual_matmul launches a forward); (d) the quantized
+               unembed (one delta_matmul of N = 151,936 a forward) on
+               (a)'s tree; launch counts read after each run; then (a)-(d)
+               at 2 layers of full width with every launch held against
+               its plain version on the CPU (the unembed's prefill launch
+               against its plain version on the card)
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -441,6 +459,9 @@ class PlainGuard:
 
 
 def serve_full_width(cfg):
+    """The main path in both modes; returns the launches and the asym_u8
+    run's calibration table, which phase 12 (a) installs again rather
+    than calibrating twice."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -457,8 +478,12 @@ def serve_full_width(cfg):
         args = serve.build_parser().parse_args(ARGS + ["--quant-mode", mode])
         with PlainGuard():
             ops.reset_launches()
-            r = serve.run(args)
+            prepared = serve.prepare(args)
+            r = serve.run(args, prepared)
             counts = dict(ops.LAUNCHES)
+        if mode == "asym_u8":
+            table = prepared.table
+        del prepared
         log(f"[serve] {mode}: kernel build {r.t_build:.3f}s, prepare "
             f"(init + prequantize + calibrate) {r.t_prepare:.3f}s, warmup "
             f"{r.t_warmup:.3f}s")
@@ -481,7 +506,7 @@ def serve_full_width(cfg):
                       "peak_gib": r.peak_bytes / 2**30}
         torch.cuda.empty_cache()
     log("[serve] " + json.dumps({"serve": rows}))
-    return totals
+    return totals, table
 
 
 def _serve_once(cfg, params, q, table, cal, prompts, gen, dev, plan=None):
@@ -534,8 +559,11 @@ def _card_params(cfg, seed):
 def _shadow_log(tag, sh, t0):
     for n, st in sh.stats.items():
         assert st["calls"] > 0, f"{tag}: {n} never launched"
+        where = (f" ({st['on_card']} of them against the plain version on "
+                 f"the card)" if st["on_card"] else "")
         log(f"[parity] {tag} {n}: {st['calls']} launches held against "
-            f"the CPU plain version; max |err| {st['max_abs_err']:.3e}"
+            f"the CPU plain version{where}; max |err| "
+            f"{st['max_abs_err']:.3e}"
             + (f"; {st['row_flips']} of {st['row_entries']} k-row "
                f"entries one bf16 step apart" if st["row_entries"]
                else ""))
@@ -749,6 +777,15 @@ def train_parity_two_layers(cfg_full):
         torch.cuda.empty_cache()
 
 
+def _launched(who, tag, want):
+    """The launch counts since the last reset, asserted to be ``want``."""
+    from repro_torch.kernels import ops
+    counts = dict(ops.LAUNCHES)
+    log(f"[{who}] {tag}: launches {counts} (expected {want})")
+    assert counts == want, f"{tag}: launch counts {counts} != {want}"
+    return counts
+
+
 PLAN_DIR = os.path.join(HERE, "build", "plans")
 
 
@@ -773,12 +810,6 @@ def plans_full_width(cfg):
     path = os.path.join(PLAN_DIR, "chip_smoke_qwen3-1.7b_sym_i8.json")
     het_path = os.path.join(PLAN_DIR, "chip_smoke_qwen3-1.7b_sym_i8_het.json")
 
-    def launched(want, tag):
-        counts = dict(ops.LAUNCHES)
-        log(f"[plans] {tag}: launches {counts} (expected {want})")
-        assert counts == want, f"{tag}: launch counts {counts} != {want}"
-        return counts
-
     def add(counts):
         for k in totals:
             totals[k] += counts[k]
@@ -791,8 +822,8 @@ def plans_full_width(cfg):
                               "--quant-mode", "sym_i8", "--out", path])
         dt = time.perf_counter() - t0
         # 7 projections x layers x 2 batches, forward only
-        add(launched(dict(dict.fromkeys(ops.LAUNCHES, 0),
-                          lut_matmul=7 * L * 2), "plan CLI"))
+        add(_launched("plans", "plan CLI", dict(
+            dict.fromkeys(ops.LAUNCHES, 0), lut_matmul=7 * L * 2)))
     assert len(made.layers) == 7 * L, len(made.layers)
     assert DesignPlan.load(path).to_json() == made.to_json()
     log(f"[plans] (a) plan CLI at full width, sym_i8, 2 train-shaped "
@@ -825,11 +856,10 @@ def plans_full_width(cfg):
         tables = {t.cpu().numpy().tobytes() for t in seen.values()}
         per_step = fused / (G + 2)
         # warm prefill + warm decode + timed prefill + G-1 decode steps
-        add(launched(dict(dict.fromkeys(ops.LAUNCHES, 0),
-                          delta_matmul=7 * L * CALIB_TOKENS,
-                          fused_qdot=fused,
-                          decode_attention=L * (CALIB_TOKENS + G)),
-                     "plan serve"))
+        add(_launched("plans", "plan serve", dict(
+            dict.fromkeys(ops.LAUNCHES, 0),
+            delta_matmul=7 * L * CALIB_TOKENS, fused_qdot=fused,
+            decode_attention=L * (CALIB_TOKENS + G))))
     assert fused % (G + 2) == 0 and 4 * L <= per_step <= 7 * L, fused
     assert len(tables) >= 2, f"the fused calls read {len(tables)} table(s)"
     assert r.out.shape == (B, G) and np.isfinite(r.logits).all()
@@ -860,8 +890,8 @@ def plans_full_width(cfg):
         ops.reset_launches()
         t = train.run(train.parse_args(argv))
         # 7 projections x layers x (forward + remat recompute) x steps
-        counts = launched(dict(dict.fromkeys(ops.LAUNCHES, 0),
-                               delta_matmul=7 * L * 2 * TSTEPS), "plan QAT")
+        counts = _launched("plans", "plan QAT", dict(
+            dict.fromkeys(ops.LAUNCHES, 0), delta_matmul=7 * L * 2 * TSTEPS))
         qat = counts.pop("delta_matmul")
         add(dict(counts, delta_matmul=0))
     assert len(t.losses) == TSTEPS
@@ -927,6 +957,289 @@ def plan_parity_two_layers(cfg_full):
     assert sh.stats["delta_matmul"]["calls"] == 7 * cfg.n_layers * 2
     assert np.isfinite(float(m["loss"]))
     _shadow_log("plan QAT sym_i8", sh, t0)
+
+
+CONT_N = 10                      # phase 12 (a): requests through B slots
+UNEMBED_STEPS = 3                # phase 12 (d): decode steps after prefill
+
+
+def _alone(params, cfg, q, prompt, gen, s_max, dev):
+    """One request served alone: a B = 1 prefill and gen - 1 greedy steps
+    on ``params``, in a per-slot state of s_max positions (the
+    state serve --continuous makes).  Returns the ids."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_prefill_step, make_serve_step
+    st = T.init_decode_state(cfg, 1, s_max, device=dev, per_slot=True)
+    tok, _, st = make_prefill_step(cfg, q)(
+        params, st, torch.as_tensor(prompt[None], device=dev))
+    ids = [int(tok[0, 0])]
+    step = make_serve_step(cfg, q)
+    for _ in range(gen - 1):
+        tok, _, st = step(params, st, tok)
+        ids.append(int(tok[0, 0]))
+    return ids
+
+
+def serve_options_on_tree(cfg, table, rows):
+    """Phase 12 at full width on phase 4's asym_u8 tree, prepared again
+    with its calibration table (serve.prepare(args, table)), each run's
+    launch counts read just after it: (a) --continuous 10 over 4 slots,
+    every request equal to itself served alone; (d) the quantized unembed
+    (QuantConfig quant_unembed) on the same tree, a prefill and
+    UNEMBED_STEPS decode steps.  First, rmsnorm on the card gives each
+    row of a batch its value alone.  Returns the launches to add to the
+    paths' counts and the unembed's delta_matmul launches (kept
+    apart)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_prefill_step, make_serve_step
+    L = cfg.n_layers
+    dev = torch.device("cuda")
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+    totals = dict(zero)
+
+    # rmsnorm: every row of a batch as it is alone (its float32 form,
+    # ref._rmsnorm, counted beside it)
+    g = torch.Generator(device=dev).manual_seed(12)
+    gamma = torch.ones((cfg.d_model,), device=dev)
+    moved = {"layers.rmsnorm": 0, "float32 mean": 0}
+    for t in range(300):
+        x = torch.randn((B, 1, cfg.d_model), generator=g, device=dev) * (
+            1 + t % 7)
+        for name, fn in (("layers.rmsnorm", layers.rmsnorm),
+                         ("float32 mean", ref._rmsnorm)):
+            y = fn(x, gamma)
+            moved[name] += sum(not torch.equal(y[i:i + 1],
+                                               fn(x[i:i + 1], gamma))
+                               for i in range(B))
+    log(f"[options] rmsnorm rows of a batch of {B} that differ from the "
+        f"row alone, of {300 * B} random {cfg.d_model}-wide rows: {moved}")
+    assert moved["layers.rmsnorm"] == 0, moved
+
+    # (a) continuous batching on phase 4's tree
+    args = serve.build_parser().parse_args(
+        ARGS + ["--quant-mode", "asym_u8", "--continuous", str(CONT_N)])
+    with PlainGuard():
+        ops.reset_launches()
+        prepared = serve.prepare(args, table)
+        r = serve.run(args, prepared)
+        # warm: a batched prefill, a step and a B = 1 prefill; then the
+        # batched prefill, one B = 1 prefill a refill, and the steps
+        fwd = 3 + 1 + (CONT_N - B) + r.steps
+        c = _launched("options", "(a) --continuous", dict(
+            zero, fused_qdot=4 * L * fwd, decode_attention=L * (1 + r.steps)))
+    for k in totals:
+        totals[k] += c[k]
+    s_max = P + 2 * G + 2
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (CONT_N, P)).astype(np.int32)
+    t0 = time.perf_counter()
+    alone = [_alone(prepared.params, cfg, prepared.qcfg, prompts[i], G,
+                    s_max, dev) for i in range(CONT_N)]
+    same = [alone[i] == r.out[i].tolist() for i in range(CONT_N)]
+    rows["continuous"] = {"requests": CONT_N, "slots": r.slots,
+                          "batched_steps": r.steps, "serve_s": r.t_serve,
+                          "tok_s": CONT_N * (P + G) / r.t_serve,
+                          "peak_gib": r.peak_bytes / 2**30}
+    log(f"[options] (a) --continuous {CONT_N} over {r.slots} slots, asym_u8"
+        f" calibrated (prepared with phase 4's table in "
+        f"{prepared.t_prepare:.3f}s): {r.steps} batched decode steps in "
+        f"{r.t_serve:.3f}s "
+        f"({CONT_N * (P + G) / r.t_serve:.1f} tok/s, prompt and generated "
+        f"tokens), warmup {r.t_warmup:.3f}s, peak device memory "
+        f"{r.peak_bytes / 2**30:.3f} GiB; requests equal to themselves "
+        f"served alone: {sum(same)} of {CONT_N} "
+        f"({time.perf_counter() - t0:.1f}s to replay)")
+    assert all(same), [(i, alone[i], r.out[i].tolist())
+                       for i in range(CONT_N) if not same[i]]
+    assert ((r.out >= 0) & (r.out < cfg.vocab)).all()
+
+    # (d) the quantized unembed on the same tree
+    q = dataclasses.replace(prepared.qcfg, quant_unembed=True)
+    prefill, step = make_prefill_step(cfg, q), make_serve_step(cfg, q)
+    p_dev = torch.as_tensor(prompts[:B], device=dev)
+
+    def state():
+        return T.init_decode_state(cfg, B, P + UNEMBED_STEPS + 1,
+                                   device=dev)
+    tok, _, st = prefill(prepared.params, state(), p_dev)   # warm
+    step(prepared.params, st, tok)
+    del st
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with PlainGuard():
+        ops.reset_launches()
+        st = state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, lg, st = prefill(prepared.params, st, p_dev)
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(UNEMBED_STEPS):
+            tok, lg, st = step(prepared.params, st, tok)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / UNEMBED_STEPS
+        fwd = 1 + UNEMBED_STEPS
+        c = _launched("options", "(d) quant_unembed", dict(
+            zero, delta_matmul=fwd, fused_qdot=4 * L * fwd,
+            decode_attention=L * UNEMBED_STEPS))
+    totals["fused_qdot"] += c["fused_qdot"]
+    totals["decode_attention"] += c["decode_attention"]
+    assert lg.shape == (B, 1, cfg.vocab) and bool(torch.isfinite(lg).all())
+    rows["quant_unembed"] = {"prefill_ms": t_pf * 1e3,
+                             "decode_ms_per_step": t_dec * 1e3,
+                             "peak_gib": torch.cuda.max_memory_allocated(
+                                 dev) / 2**30}
+    log(f"[options] (d) quant_unembed (asym_u8, calibrated tree): prefill "
+        f"{B}x{P} {t_pf * 1e3:.3f} ms, decode {t_dec * 1e3:.3f} ms/step "
+        f"over {UNEMBED_STEPS} steps, one delta_matmul of K={cfg.d_model} "
+        f"N={cfg.vocab} a forward; peak device memory "
+        f"{rows['quant_unembed']['peak_gib']:.3f} GiB")
+    del prepared, st, lg, tok
+    torch.cuda.empty_cache()
+    return totals, c["delta_matmul"]
+
+
+def serve_options_runs(cfg, rows):
+    """Phase 12's serve runs at full width, each prepared afresh and its
+    launch counts read just after it: (b) --per-channel --calibrate 1,
+    sym_i8; (c) --prequantize --backend xla, residual and delta, asym_u8,
+    uncalibrated.  Returns the launches to add to the paths' counts and
+    those of lut_matmul / residual_matmul at the serve shapes (kept
+    apart)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    L = cfg.n_layers
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+    totals = dict(zero)
+    apart = {"lut_matmul": 0, "residual_matmul": 0}
+
+    def parse(argv):
+        return serve.build_parser().parse_args(argv)
+
+    def served(tag, r):
+        rows[tag] = {"prefill_ms": r.t_prefill * 1e3,
+                     "prefill_tok_s": B * P / r.t_prefill,
+                     "decode_ms_per_step": r.t_decode * 1e3 / (G - 1),
+                     "prepare_s": r.t_prepare,
+                     "peak_gib": r.peak_bytes / 2**30}
+        log(f"[options] {tag}: prepare {r.t_prepare:.3f}s; prefill {B}x{P} "
+            f"{r.t_prefill * 1e3:.3f} ms ({B * P / r.t_prefill:.1f} tok/s);"
+            f" decode {r.t_decode * 1e3 / (G - 1):.3f} ms/step; peak device "
+            f"memory {r.peak_bytes / 2**30:.3f} GiB; sample ids "
+            f"{r.out[0][:12].tolist()}")
+        assert r.out.shape == (B, G) and np.isfinite(r.logits).all()
+        assert ((r.out >= 0) & (r.out < cfg.vocab)).all()
+
+    # (b) per-channel weight scales, calibrated, sym_i8
+    args = parse(ARGS + ["--quant-mode", "sym_i8", "--per-channel"])
+    with PlainGuard():
+        ops.reset_launches()
+        r = serve.run(args)
+        c = _launched("options", "(b) --per-channel", dict(
+            zero, delta_matmul=7 * L * CALIB_TOKENS,
+            fused_qdot=4 * L * (G + 2),
+            decode_attention=L * (CALIB_TOKENS + G)))
+    for k in totals:
+        totals[k] += c[k]
+    served("(b) --per-channel --calibrate 1 sym_i8", r)
+    del r
+    torch.cuda.empty_cache()
+
+    # (c) the uncalibrated backends: the product-LUT gather (serve's
+    # default), the rank-32 emulation and the delta product, 112 launches
+    # a forward each
+    for be, kernel in (("xla", "lut_matmul"), ("residual", "residual_matmul"),
+                       ("delta", "delta_matmul")):
+        args = parse(["--arch", "qwen3-1.7b", "--requests", str(B),
+                      "--prompt-len", str(P), "--gen-len", str(G),
+                      "--prequantize", "--backend", be, "--quant-mode",
+                      "asym_u8"])
+        with PlainGuard():
+            ops.reset_launches()
+            r = serve.run(args)
+            # warm prefill + warm decode + timed prefill + G-1 steps
+            c = _launched("options", f"(c) --backend {be}", dict(
+                zero, **{kernel: 4 * L * (G + 2)}, decode_attention=L * G))
+        for k in totals:
+            totals[k] += 0 if k in apart else c[k]
+        for k in apart:
+            apart[k] += c[k]
+        served(f"(c) --prequantize --backend {be} asym_u8", r)
+        del r
+        torch.cuda.empty_cache()
+    return totals, apart
+
+
+def serve_options_parity(cfg_full):
+    """Phase 12 at 2 layers of full width, every launch of the card's run
+    held against its plain version on the CPU (CpuShadow): (a)
+    --continuous 3 over 2 slots, calibrated, asym_u8; (d) the quantized
+    unembed on (a)'s tree, its prefill launch (M*K*N above 2^30 gathers)
+    held against the plain version on the card; (b) per-channel scales,
+    calibrated, sym_i8; (c) the xla and residual backends, uncalibrated."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import check
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import make_prefill_step, make_serve_step
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    torch.set_num_threads(os.cpu_count() or 1)
+    _, params_gpu = _card_params(cfg, 7)
+    b, p, g = 2, 4, 3
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+    args = serve.build_parser().parse_args(
+        ["--requests", str(b), "--prompt-len", str(p), "--gen-len", str(g),
+         "--calibrate", "1", "--continuous", "3"])
+    q = serve.quant_config(args)
+    t0 = time.perf_counter()
+    with check.CpuShadow(check.CpuShadow.serving(q.backend)) as sh:
+        tree, _, _ = serve.prepare_params(params_gpu, cfg, q, args,
+                                          device="cuda")
+        out = serve.serve_continuous(tree, cfg, q, args,
+                                     np.random.default_rng(0), "cuda")[0]
+    _shadow_log("(a) --continuous 3 over 2 slots", sh, t0)
+    log(f"[parity] (a) card ids {out.tolist()}")
+    qu = dataclasses.replace(q, quant_unembed=True)
+    t0 = time.perf_counter()
+    with check.CpuShadow(check.CpuShadow.serving(q.backend),
+                         card_gathers=1 << 30) as sh:
+        st = T.init_decode_state(cfg, b, p + 3, device="cuda")
+        tok, _, st = make_prefill_step(cfg, qu)(
+            tree, st, torch.as_tensor(prompts, device="cuda"))
+        for _ in range(2):
+            tok, lg, st = make_serve_step(cfg, qu)(tree, st, tok)
+    _shadow_log("(d) quant_unembed", sh, t0)
+    held = sh.stats["delta_matmul"]
+    assert held["calls"] == 3 and held["on_card"] == 1, held
+    assert bool(torch.isfinite(lg).all())
+    del tree, st
+    cal = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+    for tag, q in (("(b) --per-channel sym_i8",
+                    QuantConfig(backend="fused", mode="sym_i8",
+                                w_per_channel=True, inference=True)),
+                   ("(c) --backend xla", QuantConfig(
+                       backend="xla", mode="asym_u8", inference=True)),
+                   ("(c) --backend residual", QuantConfig(
+                       backend="residual", mode="asym_u8", inference=True))):
+        t0 = time.perf_counter()
+        with check.CpuShadow(check.CpuShadow.serving(q.backend)) as sh:
+            _, ids, _, _ = _serve_once(cfg, params_gpu, q, None, cal,
+                                       prompts, g, "cuda")
+        _shadow_log(tag, sh, t0)
+        log(f"[parity] {tag}: card ids {ids.tolist()}")
+    torch.cuda.empty_cache()
 
 
 def time_kernels(cfg, dev):
@@ -1082,18 +1395,62 @@ def time_kernels(cfg, dev):
             w.append(name.count("/") + 1)
         summary[kname] = (mean(rs, w), rs)
 
+    # phase 12's shapes: lut_matmul and residual_matmul at the merged
+    # projections (serve --backend xla / residual), decode (M = B) and
+    # prefill (M = B*P), each projection once a layer; delta_matmul at the
+    # quantized unembed's vocabulary width
+    serve_rows = {}
+    for kname in ("lut_matmul", "residual_matmul"):
+        by_m = {}
+        for i, (name, K, N) in enumerate(merged):
+            for M in (B, B * P):
+                if kname == "lut_matmul":
+                    c = check.lut_case(M, K, N, False, 800 + i, dev,
+                                       shifted=False)
+                    fn, plain = (lambda: ops.lut_matmul(**c),
+                                 lambda: check.lut_plain(c))
+                    bound = lut_bound(M, K, N)
+                else:
+                    c = check.residual_case(M, K, N, False, RANK, 810 + i,
+                                            dev)
+                    fn = lambda: ops.residual_matmul(**c)
+                    plain = lambda: ref.residual_corrected_matmul_ref(**c)
+                    bound = residual_bound(M, K, N, RANK)
+                by_m.setdefault(M, []).append(row(
+                    kname, f"{name} M={M} K={K} N={N} (serve)", fn,
+                    20 if M == B else 5, cuda_time(plain, 2), bound))
+        serve_rows[kname] = {f"M={M}": dict(mean(rs, [1] * len(rs)),
+                                            bound_by=rs[0]["bound_by"])
+                             for M, rs in by_m.items()}
+    K, N = cfg.d_model, cfg.vocab
+    unembed = {}
+    for M, it in ((B, 20), (B * P, 2)):
+        c = check.delta_case(M, K, N, False, 820 + M, dev)
+        unembed[f"M={M}"] = row(
+            "delta_matmul", f"unembed M={M} K={K} N={N}",
+            lambda: ops.delta_matmul(**c), it,
+            cuda_time(lambda: check.delta_plain(c), 1),
+            delta_bound(M, K, N))
+        del c
+    serve_rows["delta_matmul"] = unembed
+    torch.cuda.empty_cache()
+
     log("[timing] library_ms is null: no single PyTorch call computes the "
         "approximate (delta-table) product, the fused quantize-product-"
         "dequant, the qk-norm/rope/bf16-row decode attention step, the "
         "product-LUT gather sum or the exact product plus the "
         "correction-table gather sum")
-    return summary, plan_qat
+    return summary, plan_qat, serve_rows
 
 
-def kernels_json(summary, plan_qat, launches, errs):
+def kernels_json(summary, plan_qat, serve_rows, launches, errs):
     """The kernels' JSON record: per kernel the launches of the paths'
     runs, the max error of phase 3 and the timings of phase 8 (for
-    delta_matmul also its planned-QAT shape, ``plan_qat``)."""
+    delta_matmul also its planned-QAT shape, ``plan_qat``, and the
+    quantized unembed's, ``unembed``; for lut_matmul and residual_matmul
+    the serve shapes of phase 12 (c), ``serve``), each with the launches
+    of its own runs."""
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
     for name, (m, rs) in summary.items():
         src, replaces = SOURCES[name]
@@ -1114,6 +1471,12 @@ def kernels_json(summary, plan_qat, launches, errs):
                 **{k: qm[k] for k in ("ms", "device_ms", "plain_ms",
                                       "bound_ms")},
                 "bound_by": qrs[0]["bound_by"]}
+        sub = "unembed" if name == "delta_matmul" else "serve"
+        if name in serve_rows:
+            kernels[-1][sub] = {
+                "launches": launches[f"{name}_{sub}"],
+                **{m: {k: r[k] for k in keys if k in r}
+                   for m, r in serve_rows[name].items()}}
     return kernels
 
 
@@ -1153,7 +1516,7 @@ def trace_decode(cfg, steps: int = 4):
                     inference=True)
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
-    params, _ = serve.prepare_params(params, cfg, q, args, device=dev)
+    params, _, _ = serve.prepare_params(params, cfg, q, args, device=dev)
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
     state = T.init_decode_state(cfg, B, P + G, device=dev)
     tok, _, state = make_prefill_step(cfg, q)(
@@ -1267,7 +1630,7 @@ def main() -> int:
         errs = check_kernels(cfg, dev)
         check_train_kernels(cfg, dev, errs)
         phase("4. full-width serve (main path)")
-        launches = serve_full_width(cfg)
+        launches, table = serve_full_width(cfg)
         phase("5. slice parity: card vs CPU at 2 layers of full width")
         parity_two_layers(cfg)
         parity_initial(cfg)
@@ -1278,20 +1641,35 @@ def main() -> int:
     train_parity_two_layers(cfg)
     with torch.no_grad():
         phase("8. timing")
-        summary, plan_qat = time_kernels(cfg, dev)
+        summary, plan_qat, serve_rows = time_kernels(cfg, dev)
         phase("9. trace of the decode step")
         trace_decode(cfg)
         phase("10. per-layer design plans at full width")
         plan_launches, qat_launches = plans_full_width(cfg)
         phase("11. plan parity: card vs CPU at 2 layers of full width")
         plan_parity_two_layers(cfg)
+        phase("12. serve options at full width")
+        rows = {}
+        opt_launches, unembed_launches = serve_options_on_tree(
+            cfg, table, rows)
+        more, apart = serve_options_runs(cfg, rows)
+        log("[options] " + json.dumps({"options": rows}))
+        serve_options_parity(cfg)
     # the plan runs' launches join the paths' counts, but for the planned
     # QAT steps' delta_matmul launches (M = TB*TS), which stand apart
     # beside their own timing row
     launches["delta_matmul_plan_qat"] = qat_launches
     for k, v in plan_launches.items():
         launches[k] += v
-    kernels = kernels_json(summary, plan_qat, launches, errs)
+    # phase 12's runs join them too, but for the launches at shapes of
+    # their own (the serve shapes of lut_matmul / residual_matmul and the
+    # unembed's delta_matmul), which stand apart beside their rows
+    for k in opt_launches:
+        launches[k] += opt_launches[k] + more[k]
+    launches["lut_matmul_serve"] = apart["lut_matmul"]
+    launches["residual_matmul_serve"] = apart["residual_matmul"]
+    launches["delta_matmul_unembed"] = unembed_launches
+    kernels = kernels_json(summary, plan_qat, serve_rows, launches, errs)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

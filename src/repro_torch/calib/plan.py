@@ -444,6 +444,7 @@ def make_plan_injector(params, plan: DesignPlan, qcfg: QuantConfig, *,
     def inject(p):
         def wrap(v, path):
             return qlin.QuantizedWeight(v, mode=qcfg.mode, path=path,
+                                        per_channel=qcfg.w_per_channel,
                                         **consts[path])
         return qlin.walk_dense(p, wrap)
 
@@ -469,7 +470,7 @@ def build_parser():
     ap.add_argument("--quant-mode", default="sym_i8",
                     choices=["asym_u8", "sym_i8"])
     ap.add_argument("--per-channel", action="store_true",
-                    help="not ported: refused")
+                    help="per-output-channel weight scales")
     ap.add_argument("--clip", default="minmax",
                     choices=["minmax", "pct999", "mse"],
                     help="activation-range clipping calibrator to report "
@@ -498,9 +499,6 @@ def main(argv=None):
 
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.per_channel:
-        ap.error("--per-channel is not ported yet (per-channel weight "
-                 "scales: ROADMAP queue 1, item 3)")
     t0 = time.perf_counter()
     dev = resolve(args.device)
     if dev.type == "cuda":
@@ -509,7 +507,8 @@ def main(argv=None):
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(
         args.arch)
     qcfg = QuantConfig(design=args.design, backend="xla",
-                       mode=args.quant_mode)
+                       mode=args.quant_mode,
+                       w_per_channel=args.per_channel)
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
     pparams = prequantize_weights(params, qcfg)

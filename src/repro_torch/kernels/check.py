@@ -120,13 +120,22 @@ def delta_case(M, K, N, signed, seed, device, design="design2"):
                 unsigned=unsigned, bias=bias)
 
 
-def delta_plain(case) -> torch.Tensor:
+def delta_plain(case, budget: int = 1 << 26) -> torch.Tensor:
     """The plain version of one delta_matmul launch, on the int32 (or
-    int16) table the narrowed one stands for."""
-    return ref.delta_matmul_ref(
-        case["a"], case["b"],
-        ops.widen_delta(case["dlut"], case.get("unsigned", False),
-                        case.get("bias", 0)), case["offset"])
+    int16) table the narrowed one stands for.  Over column slices whose
+    32-deep gathered blocks hold at most ``budget`` entries (the
+    vocabulary-wide unembed's 151,936 columns at M = 256 would gather
+    1.2e9 at once); integer sums, so the slicing is exact."""
+    a, b = case["a"], case["b"]
+    dlut = ops.widen_delta(case["dlut"], case.get("unsigned", False),
+                           case.get("bias", 0))
+    N = b.shape[1]
+    cols = max(1, budget // (32 * a.shape[0]))
+    if cols >= N:
+        return ref.delta_matmul_ref(a, b, dlut, case["offset"])
+    return torch.cat([ref.delta_matmul_ref(a, b[:, n:n + cols], dlut,
+                                           case["offset"])
+                      for n in range(0, N, cols)], 1)
 
 
 def check_delta(case) -> dict:
@@ -555,10 +564,34 @@ class CpuShadow:
     SERVE = ("delta_matmul", "fused_qdot_packed", "decode_attention")
     TRAIN = ("lut_matmul", "residual_matmul")
 
-    def __init__(self, names=SERVE):
-        """names: the ops wrappers to shadow (the serving path's three by
-        default; CpuShadow.TRAIN for the training kernels)."""
+    def __init__(self, names=SERVE, card_gathers=None):
+        """names: the ops wrappers to shadow (the calibrated serving
+        path's three by default, ``serving(backend)`` for a served run on
+        another backend, CpuShadow.TRAIN for the training kernels).
+        ``card_gathers``: a delta_matmul launch of more than this many
+        gathers (M*K*N) is held against its plain version on the card
+        (delta_plain), not on the CPU (the vocabulary-wide unembed at
+        prefill size); ``stats`` counts those launches as ``on_card``."""
         self.names = tuple(names)
+        self.card_gathers = card_gathers
+
+    @classmethod
+    def serving(cls, backend: str):
+        """The wrappers a served run on ``backend`` launches: the
+        attention op and the product of ops.approx_matmul's backend
+        ('fused' also runs its calibration and its unfused calls through
+        delta_matmul; 'exact' launches no product kernel)."""
+        if backend in ops.LUT_BACKENDS:
+            prod = ("lut_matmul",)
+        elif backend in ops.RESIDUAL_BACKENDS:
+            prod = ("residual_matmul",)
+        elif backend == "fused":
+            prod = ("delta_matmul", "fused_qdot_packed")
+        elif backend == "exact":
+            prod = ()
+        else:
+            prod = ("delta_matmul",)
+        return prod + ("decode_attention",)
 
     def __enter__(self):
         shadows = {"delta_matmul": self._delta,
@@ -568,7 +601,8 @@ class CpuShadow:
                    "residual_matmul": self._residual}
         self.saved = {n: getattr(ops, n) for n in self.names}
         self.stats = {n: {"calls": 0, "max_abs_err": 0.0, "row_flips": 0,
-                          "row_entries": 0} for n in self.names}
+                          "row_entries": 0, "on_card": 0}
+                      for n in self.names}
         for n in self.names:
             setattr(ops, n, shadows[n])
         return self
@@ -587,10 +621,16 @@ class CpuShadow:
     def _delta(self, a, b, dlut, offset=0, *, unsigned=False, bias=0):
         out = self.saved["delta_matmul"](a, b, dlut, offset,
                                          unsigned=unsigned, bias=bias)
-        want = ref.delta_matmul_ref(
-            _cpu(a), _cpu(b), ops.widen_delta(_cpu(dlut), unsigned, bias),
-            offset)
-        assert torch.equal(out.cpu(), want), "delta_matmul: card != cpu"
+        case = dict(a=a, b=b, dlut=dlut, offset=offset, unsigned=unsigned,
+                    bias=bias)
+        gathers = a.shape[0] * a.shape[1] * b.shape[1]
+        if self.card_gathers is not None and gathers > self.card_gathers:
+            assert torch.equal(out, delta_plain(case)), \
+                "delta_matmul: kernel != plain on the card"
+            self.stats["delta_matmul"]["on_card"] += 1
+        else:
+            want = delta_plain({k: _cpu(v) for k, v in case.items()})
+            assert torch.equal(out.cpu(), want), "delta_matmul: card != cpu"
         self._note("delta_matmul", 0.0)
         return out
 

@@ -201,8 +201,8 @@ def fused_qdot_ref(x, qw, dlut, scal, ntab, comp_r, offset: int = 0,
 
 
 def _rmsnorm(x, gamma, eps: float = 1e-6):
-    """Mirror of models.layers.rmsnorm (kept local: models imports
-    kernels)."""
+    """models.layers.rmsnorm's float32 form (its CPU form; kept local:
+    models imports kernels), as the attention kernel's qk-norm sums."""
     var = torch.mean(torch.square(x.float()), -1, keepdim=True)
     return (x * torch.rsqrt(var + eps)) * gamma
 

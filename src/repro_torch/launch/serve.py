@@ -1,28 +1,42 @@
 """Batched-request serving driver: fused full-sequence prefill + batched
-greedy decode with a KV cache, on the card.
+greedy decode with a KV cache, on the card, and continuous batching with
+per-slot cache positions.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 4 --prompt-len 64 --gen-len 16 --calibrate 1
 
 Quantization precomputation ladder (quant/linear.py):
   --prequantize      cache weight quantization once (q/scale/zp/colsum)
+  --per-channel      per-output-channel weight scales
   --calibrate N      run N calibration batches token by token through the
                      decode path and fix STATIC per-layer activation
-                     scales; the backend is then 'fused': one kernel
-                     quantizes, multiplies and dequantizes each projection
+                     scales
   --clip MODE        activation-range calibrator: minmax | pct999 | mse
   --plan FILE        serve a per-layer design plan (calib.plan, ``python
                      -m repro_torch.calib``): each layer's projections
                      gather their own design's delta table, a row of the
                      site's bank
---calibrate and --plan imply --prequantize and the 'fused' backend (the
-unfused projections, without static scales, take delta_matmul).  The
-order is prequantize -> calibrate -> apply_plan -> attach_comp_cols ->
-fuse_projections.  With prequantized weights the attention wq|wk|wv and
-mlp gate|up projections are merged where their tables agree
-(--no-fuse-proj keeps them apart).
+--calibrate and --plan imply --prequantize.  The order is prequantize ->
+calibrate -> apply_plan -> attach_comp_cols -> fuse_projections.  With
+prequantized weights the attention wq|wk|wv and mlp gate|up projections
+are merged where their tables agree (--no-fuse-proj keeps them apart).
 
-Timing is steady state: the kernels are built and both steps warmed up
+--backend picks the approximate product (quant.QuantConfig; every name
+the reference takes).  Its default is the reference's: 'fused' with
+static scales installed (--calibrate / --plan: one kernel quantizes,
+multiplies and dequantizes each projection), else 'xla' (the product-LUT
+gather, the lut_matmul kernel).  'delta' runs the same integer products
+through delta_matmul, 'residual' the rank-32 emulation through
+residual_matmul.
+
+--continuous N serves N requests through the --requests slots with
+per-slot cache positions: a slot that has generated --gen-len tokens is
+prefilled at once with the next queued request while the other slots
+keep decoding.  The cache holds P + 2G + 2 positions, as the
+reference's; idle slots keep stepping, and serve raises (never
+clamps) before any slot would write past the cache.
+
+Timing is steady state: the kernels are built and the steps warmed up
 first (reported on their own lines), and each timed region starts and
 ends with torch.cuda.synchronize().
 """
@@ -48,26 +62,30 @@ def _calibration_prompts(cfg, rng, batches: int, requests: int,
             .astype(np.int32) for _ in range(batches)]
 
 
-def prepare_params(params, cfg, qcfg, args, device="cuda"):
+def prepare_params(params, cfg, qcfg, args, device="cuda", table=None):
     """Apply the requested precomputation ladder to a params tree.
-    Returns (params, notes).  Calibration draws from its own rng (seed
-    4242), so enabling --calibrate never shifts the serving prompts."""
+    Returns (params, notes, the calibration table or None).  Calibration
+    draws from its own rng (seed 4242), so enabling --calibrate never
+    shifts the serving prompts.  ``table``: the table an earlier run with
+    the same arguments calibrated, installed without calibrating again
+    (calibration is deterministic)."""
     from ..quant import fuse_projections, prequantize_weights
     notes = []
     if not (args.prequantize or args.calibrate or args.plan):
-        return params, notes
+        return params, notes, None
     params = prequantize_weights(params, qcfg)
-    notes.append("prequantized weights")
+    notes.append("prequantized weights"
+                 + (" (per-channel)" if qcfg.w_per_channel else ""))
     if args.calibrate:
         from ..calib import apply_calibration, calibrate_decode
-        crng = np.random.default_rng(4242)
-        table = None
-        for prompts in _calibration_prompts(cfg, crng, args.calibrate,
-                                            args.requests,
-                                            args.prompt_len):
-            t = calibrate_decode(params, cfg, qcfg, prompts, gen_len=2,
-                                 device=device)
-            table = t if table is None else table.merge(t)
+        if table is None:
+            crng = np.random.default_rng(4242)
+            for prompts in _calibration_prompts(cfg, crng, args.calibrate,
+                                                args.requests,
+                                                args.prompt_len):
+                t = calibrate_decode(params, cfg, qcfg, prompts, gen_len=2,
+                                     device=device)
+                table = t if table is None else table.merge(t)
         params = apply_calibration(params, table, clip=args.clip)
         notes.append(f"static act scales ({len(table.sites)} sites, "
                      f"{args.calibrate} calib batches, clip={args.clip})")
@@ -86,7 +104,7 @@ def prepare_params(params, cfg, qcfg, args, device="cuda"):
         params = fuse_projections(params)
         notes.append("merged wq|wk|wv -> wqkv, w_gate|w_up -> w_gateup "
                      "(fuse_projections)")
-    return params, notes
+    return params, notes, table
 
 
 def _sync(dev) -> None:
@@ -102,13 +120,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--design", default="design2")
+    ap.add_argument("--backend", default=None,
+                    help="approximate-matmul backend (quant.QuantConfig). "
+                         " Default: 'fused' when static act scales are "
+                         "installed (--calibrate/--plan), else 'xla'")
     ap.add_argument("--quant-mode", default="asym_u8",
                     choices=["asym_u8", "sym_i8"])
     ap.add_argument("--prequantize", action="store_true",
                     help="quantize the weights once up front")
+    ap.add_argument("--per-channel", action="store_true",
+                    help="per-output-channel weight scales")
     ap.add_argument("--calibrate", type=int, default=0, metavar="N",
                     help="run N calibration batches and serve with STATIC "
-                         "activation scales through the fused kernel")
+                         "activation scales")
     ap.add_argument("--clip", default="minmax",
                     choices=["minmax", "pct999", "mse"])
     ap.add_argument("--prefill", default="fused", choices=["fused", "loop"],
@@ -116,11 +140,38 @@ def build_parser() -> argparse.ArgumentParser:
                          "token by token through the decode step")
     ap.add_argument("--plan", default=None, metavar="FILE",
                     help="DesignPlan JSON: serve its per-layer designs "
-                         "(implies --prequantize and the fused backend)")
+                         "(implies --prequantize)")
     ap.add_argument("--no-fuse-proj", action="store_true",
                     help="keep wq/wk/wv and w_gate/w_up as separate calls")
+    ap.add_argument("--continuous", type=int, default=None, metavar="N",
+                    help="continuous batching: serve N total requests "
+                         "through --requests slots with per-slot cache "
+                         "positions (finished slots re-prefill from the "
+                         "queue)")
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def quant_config(args) -> QuantConfig:
+    """The run's QuantConfig, with the reference's default backend."""
+    backend = args.backend or (
+        "fused" if (args.calibrate or args.plan) else "xla")
+    return QuantConfig(design=args.design, backend=backend,
+                       mode=args.quant_mode,
+                       w_per_channel=args.per_channel, inference=True)
+
+
+@dataclasses.dataclass
+class Prepared:
+    """A run's model, ready to serve: what ``prepare`` made."""
+    cfg: object
+    qcfg: QuantConfig
+    device: torch.device
+    params: dict
+    notes: list
+    table: object              # the calibration table (None uncalibrated)
+    t_build: float             # kernel build (0 on the CPU or when cached)
+    t_prepare: float           # init + prequantize + calibrate + plan
 
 
 @dataclasses.dataclass
@@ -135,18 +186,30 @@ class ServeResult:
     peak_bytes: int            # device memory high-water mark (cuda)
 
 
+@dataclasses.dataclass
+class ContinuousResult:
+    out: np.ndarray            # (N, gen_len) generated ids, by request
+    logits: np.ndarray         # last batched step's logits
+    t_build: float
+    t_prepare: float
+    t_warmup: float            # the three steps' first calls
+    t_serve: float             # steady state: prefills, refills, steps
+    steps: int                 # batched decode steps
+    slots: int                 # min(--requests, N)
+    peak_bytes: int
+
+
 @torch.no_grad()
-def run(args) -> ServeResult:
-    """Serve as ``main`` does and return the outputs and timings."""
+def prepare(args, table=None) -> Prepared:
+    """Build the kernels (on the card), draw the seeded params and apply
+    the precomputation ladder (prepare_params; ``table``: an earlier
+    Prepared's calibration table, for the same arguments).  A Prepared
+    made from one set of arguments serves any run whose QuantConfig and
+    model arguments agree (``run(args, prepared)``)."""
     dev = resolve(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(
         args.arch)
-    qcfg = QuantConfig(design=args.design,
-                       backend=("fused" if args.calibrate or args.plan
-                                else "delta"),
-                       mode=args.quant_mode, inference=True)
-    B = args.requests
-    s_max = args.prompt_len + args.gen_len
+    qcfg = quant_config(args)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False   # exact f32 unembed
         torch.backends.cudnn.allow_tf32 = False
@@ -161,13 +224,126 @@ def run(args) -> ServeResult:
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = T.init_params(gen, cfg, device=dev)
-    rng = np.random.default_rng(0)
-    params, notes = prepare_params(params, cfg, qcfg, args, device=dev)
+    params, notes, table = prepare_params(params, cfg, qcfg, args,
+                                          device=dev, table=table)
     _sync(dev)
-    t_prepare = time.perf_counter() - t0
-    for n in notes:
-        print(f"[serve] {n}")
+    return Prepared(cfg, qcfg, dev, params, notes, table, t_build,
+                    time.perf_counter() - t0)
 
+
+def _scatter_slot(state, one, slot: int) -> None:
+    """Write a freshly prefilled single-slot state into the batched
+    ``state`` at ``slot``, in place (every cache leaf is stacked
+    (n_units, B, ...): k, v and the per-slot idx)."""
+    for c_full, c_one in zip(state["caches"], one["caches"]):
+        for k, full in c_full.items():
+            full[:, slot] = c_one[k][:, 0]
+
+
+@torch.no_grad()
+def serve_continuous(params, cfg, qcfg, args, rng, device="cuda"):
+    """Continuous batching: --continuous N requests through --requests
+    slots, each slot at its own cache position (init_decode_state
+    per_slot=True).  A finished slot is prefilled at once with the next
+    queued request (a B = 1 prefill scattered into the slot) while the
+    rest decode.  Returns (out (N, gen_len), logits, t_warmup, t_serve,
+    steps, slots)."""
+    dev = resolve(device)
+    P, G = args.prompt_len, args.gen_len
+    N = args.continuous
+    B = min(args.requests, N)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (N, P)).astype(np.int32), device=dev)
+    s_max = P + 2 * G + 2          # slack: idle slots keep stepping
+    prefill = make_prefill_step(cfg, qcfg)
+    serve = make_serve_step(cfg, qcfg)
+
+    def state(b):
+        return T.init_decode_state(cfg, b, s_max, device=dev, per_slot=True)
+
+    # warm the three steps (batched prefill, decode, B = 1 refill)
+    t0 = time.perf_counter()
+    tok_w, _, warm = prefill(params, state(B), prompts[:B])
+    serve(params, warm, tok_w)
+    prefill(params, state(1), prompts[:1])
+    _sync(dev)
+    del warm
+    t_warmup = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    st = state(B)
+    tok, logits, st = prefill(params, st, prompts[:B])
+    depth = [P] * B                # each slot's cache position, on the host
+    slot_req = list(range(B))      # request id per slot (None: idle)
+    produced = {r: [] for r in range(B)}
+    next_req = B
+    steps = 0
+    while any(r is not None for r in slot_req):
+        # harvest the slots' current tokens, refilling finished slots (the
+        # refill's own prefill token is recorded here; the next batched
+        # step consumes it to produce the slot's second token)
+        toks = tok.cpu().numpy()
+        for slot, r in enumerate(slot_req):
+            if r is None:
+                continue
+            produced[r].append(int(toks[slot, 0]))
+            while slot_req[slot] is not None and \
+                    len(produced[slot_req[slot]]) >= G:
+                if next_req < N:
+                    t1, _, one = prefill(params, state(1),
+                                         prompts[next_req:next_req + 1])
+                    _scatter_slot(st, one, slot)
+                    tok[slot] = t1[0]
+                    slot_req[slot] = next_req
+                    produced[next_req] = [int(t1[0, 0])]
+                    depth[slot] = P
+                    next_req += 1
+                else:
+                    slot_req[slot] = None
+        if all(r is None for r in slot_req):
+            break
+        if max(depth) >= s_max:
+            raise RuntimeError(
+                f"continuous batching: slot {depth.index(max(depth))} would "
+                f"write cache position {max(depth)} of a {s_max}-position "
+                f"cache")
+        tok, logits, st = serve(params, st, tok)
+        depth = [d + 1 for d in depth]
+        steps += 1
+    out = np.asarray([produced[r] for r in range(N)], np.int32)
+    _sync(dev)
+    return (out, logits.float().cpu().numpy(), t_warmup,
+            time.perf_counter() - t0, steps, B)
+
+
+@torch.no_grad()
+def run(args, prepared: Prepared = None):
+    """Serve as ``main`` does and return the outputs and timings: a
+    ServeResult, or with --continuous a ContinuousResult.  ``prepared``
+    (from ``prepare``) skips the build and the ladder; its QuantConfig
+    must be the one ``args`` asks for.  The peak memory is the device's
+    high-water mark since ``prepare`` reset it (or since the caller did)."""
+    p = prepared or prepare(args)
+    if p.qcfg != quant_config(args):
+        raise ValueError(f"prepared for {p.qcfg}, asked for "
+                         f"{quant_config(args)}")
+    cfg, qcfg, dev, params = p.cfg, p.qcfg, p.device, p.params
+    for n in p.notes:
+        print(f"[serve] {n}")
+    rng = np.random.default_rng(0)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+            else 0
+
+    if args.continuous:
+        out, logits, t_warmup, t_serve, steps, slots = serve_continuous(
+            params, cfg, qcfg, args, rng, dev)
+        return ContinuousResult(out, logits, p.t_build, p.t_prepare,
+                                t_warmup, t_serve, steps, slots, peak())
+
+    B = args.requests
+    s_max = args.prompt_len + args.gen_len
     prompts = rng.integers(0, cfg.vocab, (B, args.prompt_len)).astype(
         np.int32)
     prompts_dev = torch.as_tensor(prompts, device=dev)
@@ -206,10 +382,9 @@ def run(args) -> ServeResult:
     out = torch.cat(generated, 1)
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     return ServeResult(out.cpu().numpy(), logits.float().cpu().numpy(),
-                       t_build, t_prepare, t_warmup, t_prefill, t_decode,
-                       peak)
+                       p.t_build, p.t_prepare, t_warmup, t_prefill,
+                       t_decode, peak())
 
 
 def main(argv=None):
@@ -225,15 +400,21 @@ def main(argv=None):
           f"prequantize, calibrate): {r.t_prepare:.2f}s; warmup: "
           f"{r.t_warmup:.2f}s (reported separately — steady-state rows "
           f"below exclude them)")
-    print(f"[serve] prefill[{args.prefill}]: {n_pre} tokens in "
-          f"{r.t_prefill * 1e3:.3f}ms ({n_pre / r.t_prefill:.1f} tok/s)")
-    print(f"[serve] decode: {max(G - 1, 0)} steps in "
-          f"{r.t_decode * 1e3:.3f}ms "
-          f"({r.t_decode * 1e3 / max(G - 1, 1):.3f} ms/step, "
-          f"{B * max(G - 1, 0) / max(r.t_decode, 1e-9):.1f} tok/s)")
-    dt = r.t_prefill + r.t_decode
-    print(f"[serve] {B} requests, {G} tokens each: {dt:.3f}s steady-state, "
-          f"{(n_pre + n_dec) / dt:.1f} tok/s")
+    if args.continuous:
+        N = args.continuous
+        print(f"[serve] continuous: {N} requests over {r.slots} slots, "
+              f"{r.steps} batched decode steps: {r.t_serve:.3f}s, "
+              f"{N * (P + G) / r.t_serve:.1f} tok/s")
+    else:
+        print(f"[serve] prefill[{args.prefill}]: {n_pre} tokens in "
+              f"{r.t_prefill * 1e3:.3f}ms ({n_pre / r.t_prefill:.1f} tok/s)")
+        print(f"[serve] decode: {max(G - 1, 0)} steps in "
+              f"{r.t_decode * 1e3:.3f}ms "
+              f"({r.t_decode * 1e3 / max(G - 1, 1):.3f} ms/step, "
+              f"{B * max(G - 1, 0) / max(r.t_decode, 1e-9):.1f} tok/s)")
+        dt = r.t_prefill + r.t_decode
+        print(f"[serve] {B} requests, {G} tokens each: {dt:.3f}s "
+              f"steady-state, {(n_pre + n_dec) / dt:.1f} tok/s")
     if dev.type == "cuda":
         print(f"[serve] peak device memory: {r.peak_bytes / 2**30:.3f} GiB")
     print("[serve] sample output ids:", r.out[0][:12].tolist())

@@ -17,7 +17,20 @@ from ..quant import QuantConfig, qdot
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
-    var = torch.mean(torch.square(x.float()), -1, keepdim=True)
+    """On the CPU the mean of squares is a float32 reduction, as the
+    reference's.  On the card it is summed in float64 and rounded once
+    to float32: torch's CUDA reduction splits a row over a number of
+    threads that depends on how many rows there are, so a float32 sum
+    gives a row of a batch of 4 another value than the same row alone
+    now and then (chip_smoke.py counts them), which flips static
+    quantization steps and breaks continuous batching's promise that a
+    request is served as it would be alone.  The squares are exact in
+    float64 and their sum's rounding is far below a float32 ulp, so the
+    order no longer shows."""
+    if x.is_cuda:
+        var = torch.mean(torch.square(x.double()), -1, keepdim=True).float()
+    else:
+        var = torch.mean(torch.square(x.float()), -1, keepdim=True)
     return (x * torch.rsqrt(var + eps)) * gamma
 
 
@@ -45,15 +58,19 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
               cache: Optional[dict] = None, rope_theta: float = 10000.0):
     """x: (B, S, D). Returns (out, new_cache).
 
-    cache: {"k": (B, S_max, n_kv, hd), "v": ..., "idx": int32 scalar}
-    for decode.  The new k/v rows are written into the cache tensors IN
-    PLACE (the JAX package returns new arrays); new_cache holds the same
-    tensors and idx + S.
+    cache: {"k": (B, S_max, n_kv, hd), "v": ..., "idx": int32 scalar, or
+    (B,) per-slot positions} for decode.  The new k/v rows are written
+    into the cache tensors IN PLACE (the JAX package returns new arrays);
+    new_cache holds the same tensors and idx + S.  Every position written
+    must lie below S_max (the caller keeps it so: launch.serve raises
+    before a slot would pass the cache).
     """
     B, S, _ = x.shape
     idx = cache["idx"] if cache is not None else None
+    per_slot = idx is not None and idx.ndim == 1
     if positions is None and cache is not None:
-        positions = idx + torch.arange(S, dtype=torch.int32, device=x.device)
+        ar = torch.arange(S, dtype=torch.int32, device=x.device)
+        positions = (idx[:, None] + ar) if per_slot else (idx + ar)
     if "wqkv" in p:
         # serving-time merged projection (quant.fuse_projections): one
         # qdot, split by head counts
@@ -99,7 +116,7 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
     group = n_heads // max(n_kv, 1)
     qg = q.reshape(B, S, n_kv, group, head_dim)
     if cache is not None:
-        qpos = positions
+        qpos = positions                  # (S,), or per-slot (B, S)
         kv_limit = idx + S
     elif positions is None:
         qpos = torch.arange(S, device=x.device)
@@ -114,22 +131,31 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
         logits only ever materialize for one query block."""
         lg = true_div(torch.einsum("bsngd,btnd->bngst", q_blk, k),
                       math.sqrt(head_dim))
-        if kv_limit is not None:
-            m = (kpos[None, :] <= qpos_blk[:, None]) & \
-                (kpos[None, :] < kv_limit)
-        elif causal:
-            m = kpos[None, :] <= qpos_blk[:, None]
+        if qpos_blk.ndim == 2:
+            # per-slot cache positions: the mask varies over the batch
+            m = (kpos[None, None, :] <= qpos_blk[:, :, None]) & \
+                (kpos[None, None, :] < kv_limit[:, None, None])
+            if window is not None:
+                m = m & (kpos[None, None, :] > qpos_blk[:, :, None] - window)
+            mb = m[:, None, None]                 # (B, 1, 1, sq, S_k)
         else:
-            m = torch.ones((q_blk.shape[1], S_k), dtype=torch.bool,
-                           device=x.device)
-        if window is not None:
-            m = m & (kpos[None, :] > qpos_blk[:, None] - window)
-        lg = torch.where(m[None, None, None], lg, torch.full_like(lg, -1e30))
+            if kv_limit is not None:
+                m = (kpos[None, :] <= qpos_blk[:, None]) & \
+                    (kpos[None, :] < kv_limit)
+            elif causal:
+                m = kpos[None, :] <= qpos_blk[:, None]
+            else:
+                m = torch.ones((q_blk.shape[1], S_k), dtype=torch.bool,
+                               device=x.device)
+            if window is not None:
+                m = m & (kpos[None, :] > qpos_blk[:, None] - window)
+            mb = m[None, None, None]
+        lg = torch.where(mb, lg, torch.full_like(lg, -1e30))
         pr = torch.softmax(lg.float(), dim=-1)
         return torch.einsum("bngst,btnd->bsngd", pr, v)
 
     CHUNK = 512
-    if S > CHUNK and S % CHUNK == 0:
+    if S > CHUNK and S % CHUNK == 0 and qpos.ndim == 1:
         out = torch.cat([attend(qg[:, i:i + CHUNK], qpos[i:i + CHUNK])
                          for i in range(0, S, CHUNK)], 1)
     else:
@@ -139,9 +165,12 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
 
 
 def make_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
-               dtype=torch.bfloat16, device="cuda"):
-    """KV cache (bf16 by default) with one position for every slot."""
-    idx = torch.zeros((), dtype=torch.int32, device=device)
+               dtype=torch.bfloat16, device="cuda", per_slot: bool = False):
+    """KV cache (bf16 by default) with one position for every slot, or
+    with ``per_slot`` one position per slot (idx (B,)): batched decode
+    of slots at different depths (launch.serve --continuous)."""
+    idx = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                      device=device)
     shape = (batch, s_max, n_kv, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -168,7 +197,11 @@ def embed(table, tokens):
     return table[tokens.long()]
 
 
-def unembed(table, x):
-    """Tied output head: exact, a plain float32 matmul, as the reference
-    leaves it to XLA."""
-    return torch.matmul(x, table.T)
+def unembed(table, x, qcfg: QuantConfig):
+    """Tied output head.  Exact (a plain float32 matmul) unless
+    qcfg.quant_unembed, which routes it through qdot: the (vocab, D)
+    table is not prequantized (is_dense_weight), so each call quantizes
+    table.T dynamically, as the reference does."""
+    if not qcfg.quant_unembed:
+        return torch.matmul(x, table.T)
+    return qdot(x, table.T, qcfg)

@@ -13,7 +13,7 @@ API:
   init_params(generator, cfg, device)              -> params
   forward_train(params, batch, cfg, qcfg, remat)   -> (loss, metrics)
   forward_decode(params, state, tokens, cfg, qcfg) -> (logits, state)
-  init_decode_state(cfg, batch, s_max, device)     -> state
+  init_decode_state(cfg, batch, s_max, device, per_slot) -> state
 """
 from __future__ import annotations
 
@@ -187,7 +187,7 @@ def forward_train(params, batch, cfg: ArchConfig, qcfg: QuantConfig,
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     x = _train_stack(params, x, positions, cfg, qcfg, remat)
     x = layers.rmsnorm(x, params["final_norm"])
-    logits = layers.unembed(params["embed"], x)
+    logits = layers.unembed(params["embed"], x, qcfg)
     logp = torch.log_softmax(logits.float(), -1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("mask")
@@ -211,18 +211,21 @@ def forward_decode(params, state, tokens, cfg: ArchConfig,
     x, new_caches = _decoder_stack(params, x, None, cfg, qcfg,
                                    caches=state["caches"])
     x = layers.rmsnorm(x, params["final_norm"])
-    logits = layers.unembed(params["embed"], x)
+    logits = layers.unembed(params["embed"], x, qcfg)
     return logits, dict(state, caches=new_caches)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, s_max: int,
-                      device="cuda") -> Dict:
+                      device="cuda", per_slot: bool = False) -> Dict:
     """Zeroed bf16 KV caches stacked over the layers: k/v (n_units, B,
-    s_max, n_kv, hd) and idx (n_units,)."""
+    s_max, n_kv, hd) and idx (n_units,), or with ``per_slot`` idx
+    (n_units, B), each slot at its own depth (continuous batching:
+    launch.serve --continuous)."""
     _check_dense(cfg)
     dev = resolve(device)
     L = cfg.n_units
-    one = layers.make_cache(batch, s_max, cfg.n_kv, cfg.hd, device=dev)
+    one = layers.make_cache(batch, s_max, cfg.n_kv, cfg.hd, device=dev,
+                            per_slot=per_slot)
     cache = {k: torch.zeros((L, *v.shape), dtype=v.dtype, device=dev)
              for k, v in one.items()}
     return {"caches": [cache]}

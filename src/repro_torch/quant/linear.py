@@ -108,7 +108,8 @@ class QuantizedWeight:
       w             master weights (float)
       q, scale, zp  cached weight quantization (zp None for sym_i8); q is
                     uint8 (asym_u8) or int8 (sym_i8); per-tensor scales
-                    (..., 1, 1), per-column (..., 1, N) when merged
+                    (..., 1, 1), per-column (..., 1, N) with
+                    QuantConfig.w_per_channel or when merged
       colsum        colsum(q) float32 (..., 1, N), the asym_u8 cross term
       act_scale/act_zp  calibrated static activation quantizer (...,)
       dlut          per-layer design plan (calib.plan): the layer's int32
@@ -124,7 +125,8 @@ class QuantizedWeight:
       mode          QuantConfig.mode the cache was built for
       path          the weight's params-tree path ("units.0.attn.wq"),
                     the calibration site name
-      per_channel   per-column scales (set by fuse_projections)
+      per_channel   per-column scales (QuantConfig.w_per_channel, or set
+                    by fuse_projections)
       dlut_bank     registry key of the site's delta-table bank
       merged        fuse_projections output
     """
@@ -164,17 +166,21 @@ class QuantizedWeight:
         return self._memo[key]
 
 
-def _weight_axis(w):
-    """Quantization reduce axes: the trailing (K, N), one scale per
-    stacked slice."""
+def _weight_axis(w, per_channel: bool):
+    """Quantization reduce axes over the trailing (K, N): both (per
+    tensor, one scale per stacked slice) or K only (per channel, one
+    scale per output column, shape (..., 1, N))."""
+    if per_channel:
+        return w.ndim - 2
     return None if w.ndim == 2 else (w.ndim - 2, w.ndim - 1)
 
 
 def _quantize_weight(w: torch.Tensor, cfg: QuantConfig,
                      path: str = "") -> QuantizedWeight:
-    """Quantize over the trailing (K, N) axes; leading axes are stacked
-    layers and keep their own scales."""
-    axis = _weight_axis(w)
+    """Quantize over the trailing (K, N) axes, or over K alone with
+    cfg.w_per_channel; leading axes are stacked layers and keep their
+    own scales."""
+    axis = _weight_axis(w, cfg.w_per_channel)
     if cfg.signed:
         q, s = quantize_int8(w, axis)
         zp = colsum = None
@@ -184,7 +190,7 @@ def _quantize_weight(w: torch.Tensor, cfg: QuantConfig,
         colsum = q.sum(-2, keepdim=True).float()
         q = q.to(torch.uint8)
     return QuantizedWeight(w, q, s, zp, colsum=colsum, mode=cfg.mode,
-                           path=path)
+                           path=path, per_channel=cfg.w_per_channel)
 
 
 def is_dense_weight(k, v) -> bool:
@@ -230,15 +236,17 @@ def prequantize_weights(params, cfg: QuantConfig):
 
 
 def _warn_stale(pre: QuantizedWeight, cfg: QuantConfig) -> None:
-    key = (pre.mode, cfg.mode)
+    key = (pre.mode, pre.per_channel, cfg.mode, cfg.w_per_channel)
     if key in _STALE_WARNED:
         return
     _STALE_WARNED.add(key)
     warnings.warn(
-        f"QuantizedWeight cache built for mode={pre.mode!r} used with "
-        f"QuantConfig(mode={cfg.mode!r}) (site {pre.path!r}): falling "
-        f"back to requantizing the master weights on EVERY call.  Re-run "
-        f"prequantize_weights with the serving QuantConfig.", stacklevel=3)
+        f"QuantizedWeight cache built for mode={pre.mode!r}/"
+        f"per_channel={pre.per_channel} used with QuantConfig(mode="
+        f"{cfg.mode!r}, w_per_channel={cfg.w_per_channel}) (site "
+        f"{pre.path!r}): falling back to requantizing the master weights "
+        f"on EVERY call.  Re-run prequantize_weights with the serving "
+        f"QuantConfig.", stacklevel=3)
 
 
 def _mean_field_tables(design: str, signed: bool = False):
@@ -374,7 +382,11 @@ def qdot(x: torch.Tensor, w, cfg: QuantConfig) -> torch.Tensor:
     pre = w if isinstance(w, QuantizedWeight) else None
     if pre is not None:
         w = pre.w
-        if pre.mode != cfg.mode:
+        # a cache built for another quantization is stale; merged wrappers
+        # carry per-column scales whatever the config asks
+        if pre.mode != cfg.mode or (
+                pre.q is not None and not pre.merged
+                and pre.per_channel != cfg.w_per_channel):
             _warn_stale(pre, cfg)
             pre = None
     if _OBSERVER is not None and pre is not None:
@@ -426,7 +438,9 @@ def _qdot_asym(x, w, cfg, pre=None):
         colsum = pre.colsum.reshape(1, pre.colsum.shape[-1]) \
             if pre.colsum is not None else None
     else:
-        qw, sw, zw = quantize_uint8(w, _weight_axis(w))
+        qw, sw, zw = quantize_uint8(w, _weight_axis(w, cfg.w_per_channel))
+        if cfg.w_per_channel:
+            sw, zw = _wparam(sw, True), _wparam(zw, True)
         colsum = None
     K = x.shape[-1]
     if pre is not None and pre.dlut is not None:
@@ -457,7 +471,9 @@ def _qdot_signed(x, w, cfg, pre=None):
     if pre is not None and pre.q is not None:
         qw, sw = pre.q, _wparam(pre.scale, pre.per_channel)
     else:
-        qw, sw = quantize_int8(w, _weight_axis(w))
+        qw, sw = quantize_int8(w, _weight_axis(w, cfg.w_per_channel))
+        if cfg.w_per_channel:
+            sw = _wparam(sw, True)
     K = x.shape[-1]
     if pre is not None and pre.dlut is not None:
         prod = _delta_prod(qx, qw, pre, signed=True)

@@ -28,7 +28,14 @@ class QuantConfig:
     """How the approximate multiplier is applied inside matmuls.
 
     design:  'exact' | 'design1' | 'design2' | ... (core.multipliers)
-    backend: every name the reference accepts (kernels.ops.approx_matmul
+    backend: 'delta' by default, where the reference defaults to 'xla':
+             both give the same integer products (the exact product plus
+             the delta table is the product table, term by term), and
+             the plain versions the CPU runs are cheaper on 'delta' (one
+             exact matmul and a 16-bit gather) than on the product-LUT
+             gather.  The serve CLI keeps the reference's default ('xla'
+             uncalibrated, 'fused' with static scales).  Every name the
+             reference accepts (kernels.ops.approx_matmul
              says which kernel each launches on the card):
              'xla' / 'pallas_legacy' (the product-LUT gather sum, the
              lut_matmul kernel), 'residual' / 'residual_xla' (exact
@@ -46,8 +53,13 @@ class QuantConfig:
         conditional means mu_r[a] + mu_c[b] - mu of the error table).
     mode: 'asym_u8' (unsigned multiplier + zero-point decomposition) or
         'sym_i8' (symmetric int8 through the signed registry).
-    Weight scales are per tensor (per stacked layer); per-channel scales
-    and a quantized unembed are not ported yet.
+    w_per_channel: weight scales per output column (the reduction runs
+        over K only, one (1, N) scale row per stacked layer) instead of
+        one per tensor.  The integer product is unchanged; only the
+        dequantization broadcast differs, so every backend takes it.
+    quant_unembed: route the tied output head through qdot (the
+        approximate product, its table quantized dynamically on every
+        call, as the reference does) instead of an exact float32 matmul.
     act_per_pos: per-position dynamic activation quantization (set by
         train.make_prefill_step; ignored where static scales exist).
     inference: pure inference (serve sets it): qdot skips the
@@ -60,6 +72,8 @@ class QuantConfig:
     rank: int = 32
     compensate: bool = True
     mode: str = "asym_u8"
+    w_per_channel: bool = False
+    quant_unembed: bool = False
     act_per_pos: bool = False
     inference: bool = False
 

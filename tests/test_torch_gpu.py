@@ -480,12 +480,15 @@ def test_wrappers_refuse_a_biased_table_where_it_is_not_taken(cuda):
 @pytest.mark.parametrize("calibrate", ["0", "1"])
 def test_smoke_initial_serve_matches_cpu_launch_by_launch(cuda, calibrate):
     """serve --design initial --quant-mode asym_u8 on the card, on the
-    'delta' backend (uncalibrated) and the 'fused' one: every launch held
-    against its plain version on the CPU."""
+    'delta' backend (uncalibrated, named: serve's default is 'xla') and
+    the 'fused' one: every launch held against its plain version on the
+    CPU."""
     from repro_torch.launch import serve
     argv = ["--smoke", "--requests", "2", "--prompt-len", "5", "--gen-len",
             "4", "--calibrate", calibrate, "--design", "initial",
             "--quant-mode", "asym_u8"]
+    if calibrate == "0":
+        argv += ["--backend", "delta"]
     with check.CpuShadow() as sh:
         serve.run(serve.build_parser().parse_args(argv))
     assert sh.stats["delta_matmul"]["calls"] > 0
@@ -562,3 +565,123 @@ def test_smoke_planned_train_step_matches_cpu_launch_by_launch(smoke_plan):
         _, _, metrics = step(params, opt_mod.init(params, ocfg), batch)
     assert sh.stats["delta_matmul"]["calls"] == 7 * cfg.n_layers * 2
     assert torch.isfinite(metrics["loss"])
+
+
+VOCAB = 151936                 # qwen3-1.7b's vocabulary: the unembed's N
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("M", [1, 4])
+def test_delta_kernel_at_the_vocabulary_width(cuda, signed, M):
+    """The quantized unembed's product, K = 2048 and N = 151,936 (split-K
+    units of 128 columns x 64 k over 1,187 column groups): bit-exact and
+    repeatable."""
+    case = check.delta_case(M, 2048, VOCAB, signed, M + signed, cuda)
+    check.check_delta(case)
+    assert torch.equal(ops.delta_matmul(**case), ops.delta_matmul(**case))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("M", [1, 2, 3, 4])
+@pytest.mark.parametrize("K,N", DECODE_SHAPES)
+def test_lut_and_residual_kernels_at_decode_shapes(cuda, signed, M, K, N):
+    """serve --backend xla / residual: the merged projections at decode M
+    (1-4 rows of a 32-row tile), lut_matmul bit-exact through the offset
+    (as the backend passes the operands), residual_matmul within
+    check.RESID_TOL_REL."""
+    check.check_lut(check.lut_case(M, K, N, signed, M * K + N, cuda,
+                                   shifted=False))
+    check.check_residual(check.residual_case(M, K, N, signed, 32,
+                                             M * K + N, cuda))
+
+
+def test_rmsnorm_rows_do_not_depend_on_the_batch(cuda):
+    """layers.rmsnorm on the card gives every row the value it has alone
+    (continuous batching serves a request as it would be served alone)."""
+    from repro_torch.models import layers
+    g = torch.Generator(device=cuda).manual_seed(0)
+    gamma = torch.rand((2048,), generator=g, device=cuda) + 0.5
+    for rows in (2, 3, 4, 64):
+        for t in range(20):
+            x = torch.randn((rows, 1, 2048), generator=g, device=cuda) * (
+                1 + t)
+            y = layers.rmsnorm(x, gamma)
+            for i in range(rows):
+                assert torch.equal(y[i:i + 1], layers.rmsnorm(x[i:i + 1],
+                                                              gamma))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--continuous", "5", "--calibrate", "1"],
+    ["--per-channel", "--calibrate", "1", "--quant-mode", "sym_i8"],
+    ["--prequantize", "--backend", "xla"],
+    ["--prequantize", "--backend", "residual", "--quant-mode", "sym_i8"]])
+def test_smoke_serve_options_match_cpu_launch_by_launch(cuda, extra):
+    """serve --continuous / --per-channel / --backend xla / residual at
+    smoke size on the card: every launch held against its plain version
+    on the CPU (check.CpuShadow.serving), each of the backend's kernels
+    launched."""
+    from repro_torch.launch import serve
+    argv = ["--smoke", "--requests", "2", "--prompt-len", "4", "--gen-len",
+            "5"] + extra
+    args = serve.build_parser().parse_args(argv)
+    with check.CpuShadow(check.CpuShadow.serving(
+            serve.quant_config(args).backend)) as sh:
+        r = serve.run(args)
+    assert all(st["calls"] > 0 for st in sh.stats.values()), sh.stats
+    assert r.out.shape == ((5, 5) if args.continuous else (2, 5))
+
+
+def test_smoke_continuous_requests_equal_their_replays(cuda):
+    """--continuous 5 over 2 slots on the card: each request's ids equal
+    that request served alone (a B = 1 prefill and decode steps on the
+    same prepared tree)."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_prefill_step, make_serve_step
+    argv = ["--smoke", "--requests", "2", "--prompt-len", "4", "--gen-len",
+            "5", "--calibrate", "1", "--continuous", "5"]
+    args = serve.build_parser().parse_args(argv)
+    prep = serve.prepare(args)
+    r = serve.run(args, prep)
+    cfg = prep.cfg
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (5, 4))
+    pf, step = (make_prefill_step(cfg, prep.qcfg),
+                make_serve_step(cfg, prep.qcfg))
+    with torch.no_grad():
+        for i in range(5):
+            st = T.init_decode_state(cfg, 1, 4 + 2 * 5 + 2, device=cuda,
+                                     per_slot=True)
+            tok, _, st = pf(prep.params, st, torch.as_tensor(
+                prompts[i:i + 1].astype(np.int32), device=cuda))
+            got = [int(tok[0, 0])]
+            for _ in range(4):
+                tok, _, st = step(prep.params, st, tok)
+                got.append(int(tok[0, 0]))
+            assert got == r.out[i].tolist(), i
+
+
+def test_smoke_quant_unembed_matches_cpu_launch_by_launch(cuda):
+    """QuantConfig(quant_unembed=True) at smoke size on the card: the
+    head's delta_matmul (one a forward) and every other launch held
+    against the CPU."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig, prequantize_weights
+    from repro_torch.train import make_prefill_step, make_serve_step
+    cfg = configs.get_smoke("qwen3-1.7b")
+    q = QuantConfig(backend="delta", quant_unembed=True, inference=True)
+    params = prequantize_weights(T.init_params(
+        torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda), q)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 4)).astype(np.int32), device=cuda)
+    with check.CpuShadow(check.CpuShadow.serving("delta")) as sh:
+        st = T.init_decode_state(cfg, 2, 8, device=cuda)
+        tok, _, st = make_prefill_step(cfg, q)(params, st, prompts)
+        for _ in range(2):
+            tok, lg, st = make_serve_step(cfg, q)(params, st, tok)
+    # 7 projections x layers + the head, per forward, 3 forwards
+    assert sh.stats["delta_matmul"]["calls"] == 3 * (7 * cfg.n_layers + 1)
+    assert torch.isfinite(lg).all()

@@ -675,10 +675,16 @@ def test_plan_serve_and_train_clis_end_to_end(tmp_path, capsys):
     assert "QAT through design plan" in capsys.readouterr().out
 
 
-def test_plan_cli_refuses_per_channel(capsys):
-    with pytest.raises(SystemExit):
-        tplan.main(["--smoke", "--device", "cpu", "--per-channel"])
-    assert "queue 1, item 3" in capsys.readouterr().err
+def test_plan_cli_refuses_per_channel(tmp_path, capsys):
+    """The CLI refused --per-channel until per-channel weight scales were
+    ported; it now takes it, as the reference's does (the plan's JSON is
+    held against the reference's in test_torch_serve_options.py)."""
+    out = tmp_path / "plan.json"
+    plan = tplan.main(["--smoke", "--batches", "1", "--no-recompose16",
+                       "--device", "cpu", "--per-channel", "--out",
+                       str(out)])
+    assert out.exists() and len(plan.layers) == 14
+    assert "queue 1, item 3" not in capsys.readouterr().err
 
 
 def test_plan_cli_default_out_is_under_build(tmp_path, monkeypatch):
