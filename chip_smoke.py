@@ -60,9 +60,11 @@ error and carries on:
                delta_matmul also at the planned QAT step's shapes
                (M = 512, sym_i8: ``plan_qat`` in the JSON) and at the
                quantized unembed's (K = 2048, N = 151,936, M = 4 and 256:
-               ``unembed``); lut_matmul and residual_matmul also at the
-               merged projections' serve shapes (M = 4 and 256:
-               ``serve``)
+               ``unembed``); lut_matmul, residual_matmul and delta_matmul
+               also at the merged projections' serve shapes (M = 4 and
+               256: ``serve``); every case of these phase-12 shapes is
+               held against its plain version on the card before it is
+               timed
   9. trace     torch.profiler over full-width decode steps of the serve
                path: kernel launches per step by name, the device's busy
                share of the traced window, host-side op counts
@@ -78,14 +80,17 @@ error and carries on:
                both modes, served with every launch held against its
                plain version on the CPU, and one QAT step through it with
                every delta_matmul launch held likewise
- 12. serve options  rmsnorm gives each row of a batch its value alone;
+ 12. serve options  rmsnorm gives each row of a batch its value alone,
+               and the main path's prefill and decode with each rmsnorm
+               form (the path's fused one, float32 and float64 composites);
                at full width: (a) --continuous 10 over 4 slots (prompt
                64, gen 16) on phase 4's asym_u8 tree (prepared again from
                its calibration table), each request equal
                to itself served alone (a B = 1 prefill and decode steps);
                (b) --per-channel --calibrate 1, sym_i8; (c) --prequantize
-               --backend xla and residual, asym_u8 (112 lut_matmul /
-               residual_matmul launches a forward); (d) the quantized
+               --backend xla, residual and delta, asym_u8 (112 lut_matmul
+               / residual_matmul / delta_matmul launches a forward, kept
+               apart as ``serve`` in the JSON); (d) the quantized
                unembed (one delta_matmul of N = 151,936 a forward) on
                (a)'s tree; launch counts read after each run; then (a)-(d)
                at 2 layers of full width with every launch held against
@@ -981,11 +986,88 @@ def _alone(params, cfg, q, prompt, gen, s_max, dev):
     return ids
 
 
+def _rmsnorm_f64(x, gamma, eps: float = 1e-6):
+    """rmsnorm with its mean of squares summed in float64 and rounded once
+    to float32 (batch-invariant too, in four launches)."""
+    import torch
+    var = torch.mean(torch.square(x.double()), -1, keepdim=True).float()
+    return (x * torch.rsqrt(var + eps)) * gamma
+
+
+def _rmsnorm_f32(x, gamma, eps: float = 1e-6):
+    from repro_torch.kernels import ref
+    return ref._rmsnorm(x, gamma, eps)
+
+
+# rmsnorm forms phase 12 compares: the path's (None: layers.rmsnorm), the
+# float32 composite (the CPU form) and the float64 composite
+NORM_FORMS = {"layers.rmsnorm": None, "float32 mean": _rmsnorm_f32,
+              "float64 mean": _rmsnorm_f64}
+
+
+def norm_forms_cost(cfg, prepared, prompts):
+    """The main path's prefill and decode step on ``prepared`` (phase 4's
+    calibrated asym_u8 tree) with layers.rmsnorm swapped for each of
+    NORM_FORMS, in the order path, f32, f64, f64, f32, path: the prefill
+    and decode ms per run (host clock around a device sync, G - 1 steps)
+    and the device kernels of one profiled decode step.  Returns
+    {form: {...}}."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_prefill_step, make_serve_step
+    dev = torch.device("cuda")
+    path = layers.rmsnorm
+    prefill = make_prefill_step(cfg, prepared.qcfg)
+    step = make_serve_step(cfg, prepared.qcfg)
+    p_dev = torch.as_tensor(prompts, device=dev)
+    out = {name: {"prefill_ms": [], "decode_ms_per_step": []}
+           for name in NORM_FORMS}
+    order = list(NORM_FORMS)
+    order = order + order[::-1]
+    try:
+        for name in order:
+            layers.rmsnorm = NORM_FORMS[name] or path
+            st = T.init_decode_state(cfg, B, P + G + 1, device=dev)
+            tok, _, st = prefill(prepared.params, st, p_dev)     # warm
+            step(prepared.params, st, tok)
+            st = T.init_decode_state(cfg, B, P + G + 1, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, _, st = prefill(prepared.params, st, p_dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(G - 1):
+                tok, _, st = step(prepared.params, st, tok)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out[name]["prefill_ms"].append((t1 - t0) * 1e3)
+            out[name]["decode_ms_per_step"].append((t2 - t1) * 1e3 / (G - 1))
+            if "kernels_per_step" not in out[name]:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    step(prepared.params, st, tok)
+                    torch.cuda.synchronize()
+                out[name]["kernels_per_step"] = sum(
+                    e.device_type == torch.autograd.DeviceType.CUDA
+                    for e in prof.events())
+            del st
+    finally:
+        layers.rmsnorm = path
+    for name, r in out.items():
+        log(f"[options] rmsnorm form {name!r} on the main path (asym_u8, "
+            f"calibrated, {B}x{P}, {G - 1} steps): prefill ms "
+            f"{r['prefill_ms']}, decode ms/step {r['decode_ms_per_step']}, "
+            f"{r['kernels_per_step']} device kernels a decode step")
+    return out
+
+
 def serve_options_on_tree(cfg, table, rows):
     """Phase 12 at full width on phase 4's asym_u8 tree, prepared again
     with its calibration table (serve.prepare(args, table)), each run's
     launch counts read just after it: (a) --continuous 10 over 4 slots,
-    every request equal to itself served alone; (d) the quantized unembed
+    every request equal to itself served alone; the main path's cost
+    with each rmsnorm form (norm_forms_cost); (d) the quantized unembed
     (QuantConfig quant_unembed) on the same tree, a prefill and
     UNEMBED_STEPS decode steps.  First, rmsnorm on the card gives each
     row of a batch its value alone.  Returns the launches to add to the
@@ -993,7 +1075,7 @@ def serve_options_on_tree(cfg, table, rows):
     apart)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import layers
     from repro_torch.models import transformer as T
@@ -1003,16 +1085,16 @@ def serve_options_on_tree(cfg, table, rows):
     zero = dict.fromkeys(ops.LAUNCHES, 0)
     totals = dict(zero)
 
-    # rmsnorm: every row of a batch as it is alone (its float32 form,
-    # ref._rmsnorm, counted beside it)
+    # rmsnorm: every row of a batch as it is alone (the float32 and
+    # float64 composites counted beside the path's form)
     g = torch.Generator(device=dev).manual_seed(12)
     gamma = torch.ones((cfg.d_model,), device=dev)
-    moved = {"layers.rmsnorm": 0, "float32 mean": 0}
+    moved = dict.fromkeys(NORM_FORMS, 0)
     for t in range(300):
         x = torch.randn((B, 1, cfg.d_model), generator=g, device=dev) * (
             1 + t % 7)
-        for name, fn in (("layers.rmsnorm", layers.rmsnorm),
-                         ("float32 mean", ref._rmsnorm)):
+        for name, fn in NORM_FORMS.items():
+            fn = fn or layers.rmsnorm
             y = fn(x, gamma)
             moved[name] += sum(not torch.equal(y[i:i + 1],
                                                fn(x[i:i + 1], gamma))
@@ -1058,6 +1140,8 @@ def serve_options_on_tree(cfg, table, rows):
     assert all(same), [(i, alone[i], r.out[i].tolist())
                        for i in range(CONT_N) if not same[i]]
     assert ((r.out >= 0) & (r.out < cfg.vocab)).all()
+
+    rows["rmsnorm_forms"] = norm_forms_cost(cfg, prepared, prompts[:B])
 
     # (d) the quantized unembed on the same tree
     q = dataclasses.replace(prepared.qcfg, quant_unembed=True)
@@ -1111,7 +1195,7 @@ def serve_options_runs(cfg, rows):
     launch counts read just after it: (b) --per-channel --calibrate 1,
     sym_i8; (c) --prequantize --backend xla, residual and delta, asym_u8,
     uncalibrated.  Returns the launches to add to the paths' counts and
-    those of lut_matmul / residual_matmul at the serve shapes (kept
+    those of (c)'s product kernels at the merged projections (kept
     apart)."""
     import numpy as np
     import torch
@@ -1120,7 +1204,7 @@ def serve_options_runs(cfg, rows):
     L = cfg.n_layers
     zero = dict.fromkeys(ops.LAUNCHES, 0)
     totals = dict(zero)
-    apart = {"lut_matmul": 0, "residual_matmul": 0}
+    apart = {"lut_matmul": 0, "residual_matmul": 0, "delta_matmul": 0}
 
     def parse(argv):
         return serve.build_parser().parse_args(argv)
@@ -1170,9 +1254,8 @@ def serve_options_runs(cfg, rows):
             c = _launched("options", f"(c) --backend {be}", dict(
                 zero, **{kernel: 4 * L * (G + 2)}, decode_attention=L * G))
         for k in totals:
-            totals[k] += 0 if k in apart else c[k]
-        for k in apart:
-            apart[k] += c[k]
+            totals[k] += 0 if k == kernel else c[k]
+        apart[kernel] += c[kernel]
         served(f"(c) --prequantize --backend {be} asym_u8", r)
         del r
         torch.cuda.empty_cache()
@@ -1395,44 +1478,57 @@ def time_kernels(cfg, dev):
             w.append(name.count("/") + 1)
         summary[kname] = (mean(rs, w), rs)
 
-    # phase 12's shapes: lut_matmul and residual_matmul at the merged
-    # projections (serve --backend xla / residual), decode (M = B) and
-    # prefill (M = B*P), each projection once a layer; delta_matmul at the
+    # phase 12's shapes, each case held against its plain version before it
+    # is timed: the product kernels of serve --backend xla, residual and
+    # delta at the merged projections, decode (M = B) and prefill
+    # (M = B*P), each projection once a layer; delta_matmul at the
     # quantized unembed's vocabulary width
+    def serve_case(kname, M, K, N, seed):
+        """(case, kernel call, plain call, check, bound) of one launch."""
+        if kname == "lut_matmul":
+            c = check.lut_case(M, K, N, False, seed, dev, shifted=False)
+            return (c, lambda: ops.lut_matmul(**c),
+                    lambda: check.lut_plain(c), check.check_lut,
+                    lut_bound(M, K, N))
+        if kname == "residual_matmul":
+            c = check.residual_case(M, K, N, False, RANK, seed, dev)
+            return (c, lambda: ops.residual_matmul(**c),
+                    lambda: ref.residual_corrected_matmul_ref(**c),
+                    check.check_residual, residual_bound(M, K, N, RANK))
+        c = check.delta_case(M, K, N, False, seed, dev)
+        return (c, lambda: ops.delta_matmul(**c),
+                lambda: check.delta_plain(c), check.check_delta,
+                delta_bound(M, K, N))
+
+    def held_row(kname, shape, M, K, N, seed, iters, plain_iters):
+        c, fn, plain, chk, bound = serve_case(kname, M, K, N, seed)
+        err = chk(c)["max_abs_err"]
+        r = row(kname, shape, fn, iters, cuda_time(plain, plain_iters),
+                bound)
+        r["max_abs_err"] = err
+        log(f"[timing] {kname} {shape}: held against its plain version, "
+            f"max |err| {err:.3e}")
+        return r
+
     serve_rows = {}
-    for kname in ("lut_matmul", "residual_matmul"):
+    for j, kname in enumerate(("lut_matmul", "residual_matmul",
+                               "delta_matmul")):
         by_m = {}
         for i, (name, K, N) in enumerate(merged):
             for M in (B, B * P):
-                if kname == "lut_matmul":
-                    c = check.lut_case(M, K, N, False, 800 + i, dev,
-                                       shifted=False)
-                    fn, plain = (lambda: ops.lut_matmul(**c),
-                                 lambda: check.lut_plain(c))
-                    bound = lut_bound(M, K, N)
-                else:
-                    c = check.residual_case(M, K, N, False, RANK, 810 + i,
-                                            dev)
-                    fn = lambda: ops.residual_matmul(**c)
-                    plain = lambda: ref.residual_corrected_matmul_ref(**c)
-                    bound = residual_bound(M, K, N, RANK)
-                by_m.setdefault(M, []).append(row(
-                    kname, f"{name} M={M} K={K} N={N} (serve)", fn,
-                    20 if M == B else 5, cuda_time(plain, 2), bound))
-        serve_rows[kname] = {f"M={M}": dict(mean(rs, [1] * len(rs)),
-                                            bound_by=rs[0]["bound_by"])
-                             for M, rs in by_m.items()}
+                by_m.setdefault(M, []).append(held_row(
+                    kname, f"{name} M={M} K={K} N={N} (serve)", M, K, N,
+                    800 + 10 * j + i, 20 if M == B else 5, 2))
+        serve_rows[kname] = {"serve": {
+            f"M={M}": dict(mean(rs, [1] * len(rs)),
+                           bound_by=rs[0]["bound_by"],
+                           max_abs_err=max(r["max_abs_err"] for r in rs))
+            for M, rs in by_m.items()}}
     K, N = cfg.d_model, cfg.vocab
-    unembed = {}
-    for M, it in ((B, 20), (B * P, 2)):
-        c = check.delta_case(M, K, N, False, 820 + M, dev)
-        unembed[f"M={M}"] = row(
-            "delta_matmul", f"unembed M={M} K={K} N={N}",
-            lambda: ops.delta_matmul(**c), it,
-            cuda_time(lambda: check.delta_plain(c), 1),
-            delta_bound(M, K, N))
-        del c
-    serve_rows["delta_matmul"] = unembed
+    serve_rows["delta_matmul"]["unembed"] = {
+        f"M={M}": held_row("delta_matmul", f"unembed M={M} K={K} N={N}", M,
+                           K, N, 820 + M, it, 1)
+        for M, it in ((B, 20), (B * P, 2))}
     torch.cuda.empty_cache()
 
     log("[timing] library_ms is null: no single PyTorch call computes the "
@@ -1447,10 +1543,11 @@ def kernels_json(summary, plan_qat, serve_rows, launches, errs):
     """The kernels' JSON record: per kernel the launches of the paths'
     runs, the max error of phase 3 and the timings of phase 8 (for
     delta_matmul also its planned-QAT shape, ``plan_qat``, and the
-    quantized unembed's, ``unembed``; for lut_matmul and residual_matmul
-    the serve shapes of phase 12 (c), ``serve``), each with the launches
-    of its own runs."""
-    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")
+    quantized unembed's, ``unembed``; for the three product kernels the
+    merged projections of phase 12 (c), ``serve``), each with the
+    launches of its own runs."""
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")
     kernels = []
     for name, (m, rs) in summary.items():
         src, replaces = SOURCES[name]
@@ -1471,12 +1568,11 @@ def kernels_json(summary, plan_qat, serve_rows, launches, errs):
                 **{k: qm[k] for k in ("ms", "device_ms", "plain_ms",
                                       "bound_ms")},
                 "bound_by": qrs[0]["bound_by"]}
-        sub = "unembed" if name == "delta_matmul" else "serve"
-        if name in serve_rows:
+        for sub, by_m in serve_rows.get(name, {}).items():
             kernels[-1][sub] = {
                 "launches": launches[f"{name}_{sub}"],
                 **{m: {k: r[k] for k in keys if k in r}
-                   for m, r in serve_rows[name].items()}}
+                   for m, r in by_m.items()}}
     return kernels
 
 
@@ -1662,12 +1758,13 @@ def main() -> int:
     for k, v in plan_launches.items():
         launches[k] += v
     # phase 12's runs join them too, but for the launches at shapes of
-    # their own (the serve shapes of lut_matmul / residual_matmul and the
-    # unembed's delta_matmul), which stand apart beside their rows
+    # their own (the product kernels of --backend xla / residual / delta
+    # at the merged projections and the unembed's delta_matmul), which
+    # stand apart beside their rows
     for k in opt_launches:
         launches[k] += opt_launches[k] + more[k]
-    launches["lut_matmul_serve"] = apart["lut_matmul"]
-    launches["residual_matmul_serve"] = apart["residual_matmul"]
+    for k, v in apart.items():
+        launches[f"{k}_serve"] = v
     launches["delta_matmul_unembed"] = unembed_launches
     kernels = kernels_json(summary, plan_qat, serve_rows, launches, errs)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")

@@ -120,22 +120,13 @@ def delta_case(M, K, N, signed, seed, device, design="design2"):
                 unsigned=unsigned, bias=bias)
 
 
-def delta_plain(case, budget: int = 1 << 26) -> torch.Tensor:
+def delta_plain(case) -> torch.Tensor:
     """The plain version of one delta_matmul launch, on the int32 (or
-    int16) table the narrowed one stands for.  Over column slices whose
-    32-deep gathered blocks hold at most ``budget`` entries (the
-    vocabulary-wide unembed's 151,936 columns at M = 256 would gather
-    1.2e9 at once); integer sums, so the slicing is exact."""
-    a, b = case["a"], case["b"]
-    dlut = ops.widen_delta(case["dlut"], case.get("unsigned", False),
-                           case.get("bias", 0))
-    N = b.shape[1]
-    cols = max(1, budget // (32 * a.shape[0]))
-    if cols >= N:
-        return ref.delta_matmul_ref(a, b, dlut, case["offset"])
-    return torch.cat([ref.delta_matmul_ref(a, b[:, n:n + cols], dlut,
-                                           case["offset"])
-                      for n in range(0, N, cols)], 1)
+    int16) table the narrowed one stands for."""
+    return ref.delta_matmul_ref(
+        case["a"], case["b"],
+        ops.widen_delta(case["dlut"], case.get("unsigned", False),
+                        case.get("bias", 0)), case["offset"])
 
 
 def check_delta(case) -> dict:

@@ -41,13 +41,28 @@ def _table(dlut, device) -> torch.Tensor:
                                     dtype=torch.int32).reshape(-1)
 
 
+# most entries one gathered (M, kb, columns) block of _delta_blocks holds
+DELTA_BLOCK_ENTRIES = 1 << 26
+
+
 def _delta_blocks(out, ab, bb, flat):
     """out += sum_k flat[ab[m,k] + bb[k,n]] over K-blocks: ab (nb, M, kb)
-    and bb (nb, kb, N) hold the folded row/column halves of the index."""
-    for i in range(ab.shape[0]):
-        idx = ab[i][:, :, None] + bb[i][None, :, :]          # (M, kb, N)
-        out = out + flat[idx.long()].sum(1, dtype=torch.int32)
-    return out
+    and bb (nb, kb, N) hold the folded row/column halves of the index.
+    Columns are taken in slices whose gathered blocks hold at most
+    DELTA_BLOCK_ENTRIES entries (the vocabulary-wide unembed's 151,936
+    columns at M = 256 would gather 1.2e9 at once); integer sums, so the
+    slicing is exact."""
+    _, M, kb = ab.shape
+    N = bb.shape[2]
+    cols = max(1, DELTA_BLOCK_ENTRIES // max(M * kb, 1))
+    parts = []
+    for n in range(0, N, cols):
+        part = out[:, n:n + cols]
+        for i in range(ab.shape[0]):
+            idx = ab[i][:, :, None] + bb[i][None, :, n:n + cols]
+            part = part + flat[idx.long()].sum(1, dtype=torch.int32)
+        parts.append(part)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
 
 
 def delta_matmul_ref(a: torch.Tensor, b: torch.Tensor, dlut,

@@ -9,6 +9,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..device import true_div
 from ..kernels import ops
@@ -17,21 +18,26 @@ from ..quant import QuantConfig, qdot
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
-    """On the CPU the mean of squares is a float32 reduction, as the
-    reference's.  On the card it is summed in float64 and rounded once
-    to float32: torch's CUDA reduction splits a row over a number of
-    threads that depends on how many rows there are, so a float32 sum
-    gives a row of a batch of 4 another value than the same row alone
-    now and then (chip_smoke.py counts them), which flips static
-    quantization steps and breaks continuous batching's promise that a
-    request is served as it would be alone.  The squares are exact in
-    float64 and their sum's rounding is far below a float32 ulp, so the
-    order no longer shows."""
+    """On the CPU, the reference's float32 composite.  On the card, torch's
+    fused rms_norm: one launch that reduces each row within one block, so
+    a row of a batch gets the value it gets alone.  torch's float32 CUDA
+    reduction splits a row over a number of threads that depends on how
+    many rows there are, so the composite gives a row of a batch of 4
+    another value than the same row alone now and then (chip_smoke.py
+    counts them), which flips static quantization steps and breaks
+    continuous batching's promise that a request is served as it would
+    be alone.  Both forms are within a few float32 ulps of the exact
+    value (tests/test_torch_serve_options.py holds the fused one to the
+    reference)."""
     if x.is_cuda:
-        var = torch.mean(torch.square(x.double()), -1, keepdim=True).float()
-    else:
-        var = torch.mean(torch.square(x.float()), -1, keepdim=True)
+        return rmsnorm_fused(x, gamma, eps)
+    var = torch.mean(torch.square(x.float()), -1, keepdim=True)
     return (x * torch.rsqrt(var + eps)) * gamma
+
+
+def rmsnorm_fused(x, gamma, eps: float = 1e-6):
+    """rmsnorm's form on the card (any device): torch's fused rms_norm."""
+    return F.rms_norm(x, (x.shape[-1],), gamma, eps)
 
 
 def rope(x, positions, theta: float = 10000.0):

@@ -75,6 +75,39 @@ def test_delta_matmul_ragged(mode, signed, shape):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("mode,signed", MODES)
+def test_delta_matmul_column_slices(mode, signed, monkeypatch):
+    """The plain version's column slicing (a gathered block of at most
+    ref.DELTA_BLOCK_ENTRIES entries; the vocabulary-wide unembed needs
+    it) is exact: with room for 5 columns a block, 4 slices of N = 17
+    (the last one short) give the reference's integers, through the
+    plain delta product and the fused one."""
+    M, K, N = 3, 64, 17
+    rng = np.random.default_rng(17)
+    lo, hi = (-128, 128) if signed else (0, 256)
+    a = rng.integers(lo, hi, (M, K)).astype(np.int32)
+    b = rng.integers(lo, hi, (K, N)).astype(np.int32)
+    off = 128 if signed else 0
+    d = tlut.build_delta_lut("design2", signed)
+    bt = _t(b).to(torch.int8 if signed else torch.uint8)
+    whole = tref.delta_matmul_ref(_t(a), bt, _t(d), off)
+    monkeypatch.setattr(tref, "DELTA_BLOCK_ENTRIES", M * 32 * 5)
+    got = tref.delta_matmul_ref(_t(a), bt, _t(d), off)
+    want = rref.delta_matmul_ref(jnp.asarray(a), jnp.asarray(b),
+                                 rlut.build_delta_lut("design2", signed),
+                                 offset=off)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, whole)
+    x, qw, scal, ntab, comp_r = (_t(v) for v in _fused_inputs(
+        M, K, N, signed, 5))
+    args = (x, qw.to(bt.dtype), _t(d), scal, ntab, comp_r, off)
+    kw = dict(asym=not signed, compensate=True, return_int=True)
+    sliced = tref.fused_qdot_ref(*args, **kw)
+    monkeypatch.undo()
+    assert all(torch.equal(s, w) for s, w in zip(
+        sliced, tref.fused_qdot_ref(*args, **kw)))
+
+
 def _fused_inputs(M, K, N, signed, seed):
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(M, K)) * 1.7 + 0.3).astype(np.float32)

@@ -17,7 +17,10 @@ XLA's: test_torch_quant.py); the 'residual' backends' correction is a
 float32 sum of K * rank products in another order, so their outputs are
 held to RESID_TOL * max|y| (kernels: RESID_REF_TOL 1e-6 on the product;
 the dequant scales it).  Logits within LOGIT_TOL (as test_torch_serve.py:
-a few float32 ulps of |logit| <= 1); caches bit-equal.
+a few float32 ulps of |logit| <= 1); caches bit-equal.  rmsnorm's two
+forms within NORM_RTOL (four float32 ulps) of the reference's, elementwise.
+With hand-set static scales, qdot inputs within X_RTOL of their largest
+until the first quantization flip, which moves at most ROOT_FLIPS steps.
 
 The reference's 'pallas', 'pallas_legacy' and 'residual' backends reach
 Pallas kernels that do not build on this jax (ROADMAP section 3), so each
@@ -37,6 +40,7 @@ from repro import calib as rcalib
 from repro import configs as rconfigs
 from repro.calib import plan as rplan
 from repro.launch import serve as rserve
+from repro.models import layers as rlayers
 from repro.models import transformer as RT
 from repro.quant import QuantConfig as RQ
 from repro.quant import linear as rlin
@@ -47,6 +51,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import interop
 from repro_torch.calib import plan as tplan
 from repro_torch.launch import serve as tserve
+from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as TT
 from repro_torch.quant import QuantConfig as TQ
 from repro_torch.quant import linear as tlin
@@ -61,6 +66,9 @@ TWIN = {"xla": "xla", "pallas_legacy": "xla", "residual": "residual_xla",
         "exact": "exact"}
 RESID_TOL = 1e-5
 LOGIT_TOL = 2e-6
+NORM_RTOL = 4 * 2.0 ** -23       # four float32 ulps of the value
+X_RTOL = 1e-5                    # qdot inputs of the two packages
+ROOT_FLIPS = 2                   # quantized steps the first flip moves
 
 
 @pytest.fixture(scope="module")
@@ -260,6 +268,24 @@ def test_init_decode_state_per_slot_shapes(base):
     assert tuple(st["caches"][0]["idx"].shape) == (cfg_t.n_units, 3)
 
 
+@pytest.mark.parametrize("shape", [(4, 1, 2048), (4, 64, 2048),
+                                   (2, 5, 16, 128)])
+def test_rmsnorm_forms_match_reference(shape):
+    """layers.rmsnorm's two forms, run here on the CPU: the float32
+    composite (the CPU's) and torch's fused rms_norm (the card's,
+    layers.rmsnorm_fused), each elementwise within NORM_RTOL of the
+    reference's rmsnorm (XLA's rsqrt and torch's round differently)."""
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.standard_normal(shape) * rng.uniform(
+        0.1, 30, shape[:-1] + (1,))).astype(np.float32)
+    g = rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32)
+    want = np.asarray(rlayers.rmsnorm(jnp.asarray(x), jnp.asarray(g)))
+    for form in (tlayers.rmsnorm, tlayers.rmsnorm_fused):
+        got = form(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+        np.testing.assert_allclose(got, want, rtol=NORM_RTOL, atol=0,
+                                   err_msg=form.__name__)
+
+
 @pytest.fixture(scope="module")
 def calibrated(base):
     """Per mode, both packages' calibrated serving trees (fused, merged),
@@ -289,6 +315,57 @@ def calibrated(base):
     return trees
 
 
+def _slots_inputs(cfg):
+    """Two prompts of 3 and 6 tokens, a (2, 2) chunk and s_max 12."""
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, (1, n)).astype(np.int32)
+               for n in (3, 6)]
+    return prompts, rng.integers(0, cfg.vocab, (2, 2)).astype(np.int32), 12
+
+
+def _slots_reference(cfg, tree, q, jit=True):
+    """The per-slot run on the reference: each prompt prefilled alone and
+    scattered into its slot, the chunk through the generic S > 1 path,
+    two decode steps.  Returns (ids, logits of the three calls, state)."""
+    prompts, chunk, s_max = _slots_inputs(cfg)
+    pf, step = r_prefill(cfg, q), r_step(cfg, q)
+    if jit:
+        pf, step = jax.jit(pf), jax.jit(step)
+    sr = RT.init_decode_state(cfg, 2, s_max, per_slot=True)
+    for slot, pr in enumerate(prompts):
+        one = RT.init_decode_state(cfg, 1, s_max, per_slot=True)
+        _, _, one = pf(tree, one, jnp.asarray(pr))
+        sr = rserve._scatter_slot(sr, one, slot)
+    tok, lg, sr = pf(tree, sr, jnp.asarray(chunk))
+    lgs = [np.asarray(lg)]
+    for _ in range(2):
+        tok, lg, sr = step(tree, sr, tok)
+        lgs.append(np.asarray(lg))
+    return np.asarray(tok), lgs, sr
+
+
+def _slots_port(cfg, tree, q):
+    """The same run on the port (serve._scatter_slot writes in place)."""
+    prompts, chunk, s_max = _slots_inputs(cfg)
+    pf, step = t_prefill(cfg, q), t_step(cfg, q)
+    with torch.no_grad():
+        s2 = TT.init_decode_state(cfg, 2, s_max, device="cpu",
+                                  per_slot=True)
+        for slot, pr in enumerate(prompts):
+            one = TT.init_decode_state(cfg, 1, s_max, device="cpu",
+                                       per_slot=True)
+            _, _, one = pf(tree, one, torch.from_numpy(pr))
+            tserve._scatter_slot(s2, one, slot)
+        assert s2["caches"][0]["idx"][:, 0].tolist() == [3] * cfg.n_units
+        assert s2["caches"][0]["idx"][:, 1].tolist() == [6] * cfg.n_units
+        tok, lg, s2 = pf(tree, s2, torch.from_numpy(chunk))
+        lgs = [lg.numpy()]
+        for _ in range(2):
+            tok, lg, s2 = step(tree, s2, tok)
+            lgs.append(lg.numpy())
+    return tok.numpy(), lgs, s2
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_slots_at_different_depths_match_reference(base, calibrated, mode):
     """Two slots prefilled alone with prompts of 3 and 6 tokens and
@@ -298,42 +375,9 @@ def test_slots_at_different_depths_match_reference(base, calibrated, mode):
     positions): caches and idx bit-equal, logits within LOGIT_TOL."""
     cfg_r, cfg_t, _, _ = base
     sj, st, rq, tq = calibrated[mode]
-    rng = np.random.default_rng(11)
-    lens, s_max = (3, 6), 12
-    prompts = [rng.integers(0, cfg_r.vocab, (1, n)).astype(np.int32)
-               for n in lens]
-    chunk = rng.integers(0, cfg_r.vocab, (2, 2)).astype(np.int32)
-
-    sr = RT.init_decode_state(cfg_r, 2, s_max, per_slot=True)
-    pf_r, step_r = jax.jit(r_prefill(cfg_r, rq)), jax.jit(r_step(cfg_r, rq))
-    for slot, pr in enumerate(prompts):
-        one = RT.init_decode_state(cfg_r, 1, s_max, per_slot=True)
-        _, _, one = pf_r(sj, one, jnp.asarray(pr))
-        sr = rserve._scatter_slot(sr, one, slot)
-    tok, lg_c, sr = pf_r(sj, sr, jnp.asarray(chunk))
-    lgs_r = [np.asarray(lg_c)]
-    for _ in range(2):
-        tok, lg, sr = step_r(sj, sr, tok)
-        lgs_r.append(np.asarray(lg))
-    toks_r = np.asarray(tok)
-
-    pf_t, step_t = t_prefill(cfg_t, tq), t_step(cfg_t, tq)
-    with torch.no_grad():
-        s2 = TT.init_decode_state(cfg_t, 2, s_max, device="cpu",
-                                  per_slot=True)
-        for slot, pr in enumerate(prompts):
-            one = TT.init_decode_state(cfg_t, 1, s_max, device="cpu",
-                                       per_slot=True)
-            _, _, one = pf_t(st, one, torch.from_numpy(pr))
-            tserve._scatter_slot(s2, one, slot)
-        assert s2["caches"][0]["idx"][:, 0].tolist() == [3] * cfg_t.n_units
-        assert s2["caches"][0]["idx"][:, 1].tolist() == [6] * cfg_t.n_units
-        tok, lg_c, s2 = pf_t(st, s2, torch.from_numpy(chunk))
-        lgs_t = [lg_c.numpy()]
-        for _ in range(2):
-            tok, lg, s2 = step_t(st, s2, tok)
-            lgs_t.append(lg.numpy())
-    np.testing.assert_array_equal(tok.numpy(), toks_r)
+    toks_r, lgs_r, sr = _slots_reference(cfg_r, sj, rq)
+    toks_t, lgs_t, s2 = _slots_port(cfg_t, st, tq)
+    np.testing.assert_array_equal(toks_t, toks_r)
     gap = max(float(np.abs(a - b).max()) for a, b in zip(lgs_t, lgs_r))
     print(f"\n[{mode}] per-slot logits: max |port - reference| = {gap:.3e}")
     for a, b in zip(lgs_t, lgs_r):
@@ -345,6 +389,91 @@ def test_slots_at_different_depths_match_reference(base, calibrated, mode):
         np.testing.assert_array_equal(
             s2["caches"][0][k].float().numpy(),
             np.asarray(jnp.asarray(sr["caches"][0][k], jnp.float32)))
+
+
+class _Calls:
+    """A qdot observer for either package: every call's site, activations
+    and static quantizer, in the order the calls ran."""
+
+    unroll = True            # the reference's pscan unrolls under it
+
+    def __init__(self):
+        self._idx, self.calls = [], []
+
+    def push(self, i):
+        self._idx.append(i)
+
+    def pop(self):
+        self._idx.pop()
+
+    def record(self, x, pre, cfg):
+        x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        sx = np.asarray(pre.act_scale, np.float32).reshape(())
+        zx = (np.asarray(pre.act_zp, np.float32).reshape(())
+              if pre.act_zp is not None else np.float32(0.0))
+        lo, hi = (-128, 127) if cfg.signed else (0, 255)
+        self.calls.append((pre.path + "@" + ".".join(map(str, self._idx)),
+                           x, np.clip(np.round(x / sx) + zx, lo, hi)))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_slots_hand_set_scales_differ_only_by_flips(base, mode):
+    """The per-slot run above on trees with hand-set static scales (0.031
+    and 0.027, one a layer, as test_torch_quant.py sets them) in place of
+    calibrated ones, both packages run eagerly with every qdot call
+    recorded in order.  Up to the first call whose quantized activations
+    differ, every call's activations agree within X_RTOL of their largest;
+    at that call they agree likewise and at most ROOT_FLIPS entries
+    differ, each by one step: values a float32 ulp apart on either side
+    of a rounding edge, a quantization flip, not a per-slot fault.  (sym_i8 has one: the second decode step's layer-1 wqkv input,
+    one float32 ulp from the reference's and 4e-6 of a step from the
+    edge, which moves that layer's k/v rows by bf16 steps and the logits
+    by 0.04; asym_u8 flips nothing.)  The flips are counted and
+    printed."""
+    _, _, pj, pt = base
+    cfg_r, cfg_t = base[0], base[1]
+    sx = np.array([0.031, 0.027], np.float32)
+    zx = (np.array([127.0, 131.0], np.float32) if mode == "asym_u8"
+          else None)
+    trees = []
+    for lin, calib, p, Q, arr in (
+            (rlin, rcalib, pj, RQ, jnp.asarray),
+            (tlin, tcalib, pt, TQ, torch.from_numpy)):
+        q = Q(mode=mode, backend="fused", inference=True)
+        tree = lin.map_quantized(lin.prequantize_weights(p, q), lambda n:
+                                 n.replace(act_scale=arr(sx),
+                                           act_zp=None if zx is None
+                                           else arr(zx)))
+        trees.append((lin.fuse_projections(calib.attach_comp_cols(tree, q)),
+                      q))
+    rec_r, rec_t = _Calls(), _Calls()
+    rlin.set_observer(rec_r)
+    try:
+        _slots_reference(cfg_r, *trees[0], jit=False)
+    finally:
+        rlin.set_observer(None)
+    tlin.set_observer(rec_t)
+    try:
+        _slots_port(cfg_t, *trees[1])
+    finally:
+        tlin.set_observer(None)
+    assert [c[0] for c in rec_t.calls] == [c[0] for c in rec_r.calls]
+    flips = [int((ct[2] != cr[2]).sum())
+             for cr, ct in zip(rec_r.calls, rec_t.calls)]
+    root = next((i for i, n in enumerate(flips) if n), len(flips))
+    for (site, xr, qr), (_, xt, qt) in zip(rec_r.calls[:root + 1],
+                                           rec_t.calls[:root + 1]):
+        assert np.abs(xt - xr).max() <= X_RTOL * np.abs(xr).max(), site
+    if root < len(flips):
+        site, xr, qr = rec_r.calls[root]
+        xt, qt = rec_t.calls[root][1:]
+        assert flips[root] <= ROOT_FLIPS, (site, flips[root])
+        moved = qt != qr
+        assert (np.abs(qt - qr)[moved] == 1).all(), site
+    print(f"\n[{mode}] hand-set scales: first flip at call {root} of "
+          f"{len(flips)} ({rec_r.calls[root][0] if root < len(flips) else '-'}"
+          f"); {sum(flips)} of {sum(c[1].size for c in rec_r.calls)} "
+          f"quantized activations flipped in all")
 
 
 # ---------------------------------------------------------------------------
