@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and design-plan paths,
-and the options of launch.serve, on one NVIDIA card and check them.
+the options of launch.serve and the MoE family, on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,14 @@ error and carries on:
                (the 65,536-pair sweep through delta_matmul and fused_qdot
                on both schedules, and the path's shapes); a 3-table plan
                bank, each row bit-equal to the table alone; delta_matmul
-               at the planned QAT step's M = 512
+               at the planned QAT step's M = 512; the MoE family's shapes
+               (full width): fused_qdot at every serve projection of a
+               layer at decode and prefill M (the routers' N = 8 and 16
+               also at M = 1..4, 20 and 80, two launches bit-equal), the
+               experts also at the degenerate activation scale 1e-8,
+               delta_matmul at every calibration projection (M = 4), and
+               decode_attention at query groups 32/8 and 40/8, qk-norm
+               off, mixtral's window of 4096 at S_max 4608 past it
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
@@ -62,9 +70,10 @@ error and carries on:
                quantized unembed's (K = 2048, N = 151,936, M = 4 and 256:
                ``unembed``); lut_matmul, residual_matmul and delta_matmul
                also at the merged projections' serve shapes (M = 4 and
-               256: ``serve``); every case of these phase-12 shapes is
-               held against its plain version on the card before it is
-               timed
+               256: ``serve``); the three serving kernels at the MoE
+               family's shapes (``moe``, per config); every case of
+               these phase-12 and phase-13 shapes is held against its
+               plain version on the card before it is timed
   9. trace     torch.profiler over full-width decode steps of the serve
                path: kernel launches per step by name, the device's busy
                share of the traced window, host-side op counts
@@ -96,6 +105,18 @@ error and carries on:
                at 2 layers of full width with every launch held against
                its plain version on the CPU (the unembed's prefill launch
                against its plain version on the card)
+ 13. MoE       mixtral-8x7b at 4 of 32 layers and llama4-scout-17b-a16e at
+               2 of 48, every width as published (the float32 master
+               weights of more layers do not fit beside their int8
+               copies): serve's prepare and run, --calibrate 1, 4
+               requests, prompt 64, gen 16, asym_u8 and sym_i8; launch
+               counts held to the path's (a decode step 108 fused_qdot + 4
+               decode_attention and 106 + 2, a calibration token 116 and
+               112 delta_matmul, as many calibration sites); then one
+               layer of each at full width served calibrated in both
+               modes with every launch held against its plain version
+               (CpuShadow: the routers, wk/wv and attention on the CPU,
+               the larger products on the card)
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -125,6 +146,15 @@ TRAIN_RUNS = [("xla", "asym_u8", ["--compress-grads"]),
 CKPT_RUN = ("residual", "sym_i8")          # saves its state: --ckpt-dir
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 RANK = 32                        # QuantConfig.rank, the launcher's default
+# the MoE family (phase 13): every width of the reference's CONFIG, the
+# depth cut so that the float32 master weights fit the card beside their
+# int8 copies (mixtral 5.8 GB a layer, scout 8.8 GB a layer and a 4.1 GB
+# embedding); one layer is the pattern's whole period ("moe",)
+MOE_RUNS = (("mixtral-8x7b", 4), ("llama4-scout-17b-a16e", 2))
+# phase 13's parity: a launch of more gathers than this is held against
+# its plain version on the card, not on the CPU (the experts, the merged
+# attention and the shared expert at full width)
+MOE_CARD_GATHERS = 1 << 24
 # H100 SXM data-sheet rates
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
@@ -180,6 +210,43 @@ def projection_shapes(cfg):
     merged = [("wqkv", D, (H + 2 * Kv) * hd), ("wo", H * hd, D),
               ("w_gateup", D, 2 * F), ("w_down", F, D)]
     return unmerged, merged
+
+
+def moe_shapes(cfg):
+    """The projections of one layer of an MoE config: (calibration,
+    serve).  calibration: (name, K, N, M, per layer) of the unmerged
+    projections of a calibration token (M = B rows, C = 4 rows an
+    expert); serve: (name, K, N, M decode, M prefill, per layer) of the
+    merged ones (an expert at its capacity C: 4 in decode, B*P*top_k*1.25/E
+    in prefill)."""
+    from repro_torch.models.moe import capacity
+    D, H, Kv, hd, F, E = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+                          cfg.d_ff, cfg.n_experts)
+    Fs = cfg.shared_expert_ff
+    c_dec = capacity(B, cfg.top_k, E)
+    c_pre = capacity(B * P, cfg.top_k, E)
+    calib = [("wq", D, H * hd, B, 1), ("wk", D, Kv * hd, B, 1),
+             ("wv", D, Kv * hd, B, 1), ("wo", H * hd, D, B, 1),
+             ("router", D, E, B, 1), ("expert w_gate/w_up", D, F, c_dec,
+                                      2 * E),
+             ("expert w_down", F, D, c_dec, E)]
+    serve = [("wqkv", D, (H + 2 * Kv) * hd, B, B * P, 1),
+             ("wo", H * hd, D, B, B * P, 1), ("router", D, E, B, B * P, 1),
+             ("expert w_gate/w_up", D, F, c_dec, c_pre, 2 * E),
+             ("expert w_down", F, D, c_dec, c_pre, E)]
+    if Fs:
+        calib += [("shared w_gate/w_up", D, Fs, B, 2),
+                  ("shared w_down", Fs, D, B, 1)]
+        serve += [("shared w_gateup", D, 2 * Fs, B, B * P, 1),
+                  ("shared w_down", Fs, D, B, B * P, 1)]
+    return calib, serve
+
+
+def moe_per_layer(cfg):
+    """(delta_matmul launches a calibration token, fused_qdot launches a
+    forward) of one MoE layer."""
+    calib, serve = moe_shapes(cfg)
+    return sum(c[-1] for c in calib), sum(c[-1] for c in serve)
 
 
 def lut_bound(M, K, N):
@@ -298,6 +365,100 @@ def check_biased_and_banks(cfg, dev):
                                                630 + i, dev))
             log(f"[kernels] delta_matmul {'sym_i8' if signed else 'asym_u8'}"
                 f" {name} M={TB * TS} K={K} N={N} (planned QAT): bit-exact")
+
+
+def check_moe_kernels(dev, errs):
+    """Phase 3 at the MoE family's shapes (full width): fused_qdot at
+    every serve projection of a layer at decode and prefill M (the
+    routers' N = 8 and 16 also at M = 1..4 on the split-K schedule, with
+    and without compensation, two launches bit-equal), at the expert
+    shapes with a degenerate activation scale (1e-8, what calibration
+    gives an expert that saw only padding rows) on both schedules;
+    delta_matmul at every calibration projection (M = 4); decode_attention
+    at the configs' query groups (32/8 and 40/8, head_dim 128, qk-norm
+    off), mixtral's window of 4096 at S_max 4608 with positions past it.
+    Folds the max errors into ``errs``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check, ops
+    n = 0
+    for arch, _ in MOE_RUNS:
+        cfg = configs.get(arch)
+        calib, serve = moe_shapes(cfg)
+        for signed in (False, True):
+            mode = "sym_i8" if signed else "asym_u8"
+            for i, (name, K, N, M, _) in enumerate(calib):
+                check.check_delta(check.delta_case(M, K, N, signed, 900 + i,
+                                                   dev))
+                n += 1
+            log(f"[kernels] {arch} {mode}: delta_matmul at the "
+                f"{len(calib)} calibration projections (M = {B}, experts "
+                f"at C = {calib[-1][3]}): bit-exact")
+            for i, (name, K, N, m_dec, m_pre, _) in enumerate(serve):
+                ms = (1, 2, 3, m_dec, 20, 80, m_pre) if name == "router" \
+                    else (m_dec, m_pre)
+                for M in sorted(set(ms)):
+                    for comp in ((True, False) if name == "router"
+                                 else (True,)):
+                        case = check.fused_case(M, K, N, signed, 920 + i,
+                                                dev, compensate=comp)
+                        r = check.check_fused(case)
+                        n += 1
+                        errs["fused_qdot"] = max(errs["fused_qdot"],
+                                                 r["max_abs_err"])
+                        if name == "router":
+                            again = [ops.fused_qdot_packed(
+                                **case, return_int=True) for _ in range(2)]
+                            assert all(torch.equal(x, y) for x, y in
+                                       zip(*again)), "router not repeatable"
+                        log(f"[kernels] {arch} fused_qdot {mode} {name} "
+                            f"M={M} K={K} N={N} compensate={comp}: qx, acc "
+                            f"bit-exact; max |err| {r['max_abs_err']:.3e} "
+                            f"({r['max_rel_err']:.3e} of max |y|)"
+                            + ("; two launches bit-equal"
+                               if name == "router" else ""))
+                if name.startswith("expert"):
+                    for M in (m_dec, m_pre):
+                        r = check.check_fused(check.fused_case(
+                            M, K, N, signed, 940 + i, dev, sx=1e-8))
+                        n += 1
+                        log(f"[kernels] {arch} fused_qdot {mode} {name} "
+                            f"M={M} K={K} N={N} at the degenerate scale "
+                            f"1e-8: qx, acc bit-exact; max |err| "
+                            f"{r['max_abs_err']:.3e}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for arch, _ in MOE_RUNS:
+        cfg = configs.get(arch)
+        H, Kv, hd, w = cfg.n_heads, cfg.n_kv, cfg.hd, cfg.window
+        cases = [("decode", dict(B=B, S=P + G, pos=[64, 70, 75, 79])),
+                 ("calibration", dict(B=B, S=CALIB_TOKENS,
+                                      pos=[0, 1, 33, 65]))]
+        if w:
+            S = w + 512
+            cases += [(f"window {w}, past it", dict(
+                B=B, S=S, window=w, pos=[w - 1, w, w + 100, S - 1])),
+                (f"window {w}, chunk edges", dict(
+                    B=B, S=S, window=w, pos=(check.attention_edge_positions(
+                        S, B, Kv, hd, sms)[-B:])))]
+        for j, (tag, kw) in enumerate(cases):
+            Bq, S = kw.pop("B"), kw.pop("S")
+            case = check.attention_case(Bq, S, H, Kv, hd, 960 + j, dev,
+                                        qk_norm=False, **kw)
+            r = check.check_attention(case)
+            a = check.check_attention_append(case)
+            n += 2
+            errs["decode_attention"] = max(errs["decode_attention"],
+                                           r["max_abs_err"])
+            log(f"[kernels] {arch} decode_attention {tag} H/Kv={H}/{Kv} "
+                f"hd={hd} qk-norm off S={S} pos={case['pos'].tolist()} "
+                f"window={case['window']}: v rows bit-exact, "
+                f"{r['row_flips']} of {r['row_entries']} k-row entries a "
+                f"bf16 step apart, max |out err| {r['max_abs_err']:.3e}; "
+                f"two launches bit-equal; the append in place "
+                f"({a['row_flips']} k-row entries apart)")
+            del case
+    log(f"[kernels] MoE shapes: {n} cases held against their plain "
+        f"versions")
 
 
 def check_attention_cases(cfg, dev) -> float:
@@ -1325,35 +1486,212 @@ def serve_options_parity(cfg_full):
     torch.cuda.empty_cache()
 
 
+def moe_full_width():
+    """Phase 13: serve each MoE config of MOE_RUNS at full width and cut
+    depth through launch.serve's prepare and run (--calibrate 1, 4
+    requests, prompt 64, gen 16), asym_u8 and sym_i8, each run's launch
+    counts read just after it and held to the path's: a calibration token
+    launches one delta_matmul a projection (attention, router, every
+    expert and the shared expert unmerged), a forward one fused_qdot a
+    merged projection and every expert's three.  Returns {arch: launches
+    of its runs} and the rows."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    launches, rows = {}, {}
+    for arch, layers in MOE_RUNS:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        L = cfg.n_layers
+        calib_pl, serve_pl = moe_per_layer(cfg)
+        want = dict.fromkeys(ops.LAUNCHES, 0)
+        # calibration tokens; warm prefill + warm decode + timed prefill +
+        # G-1 decode steps
+        want.update(delta_matmul=calib_pl * L * CALIB_TOKENS,
+                    fused_qdot=serve_pl * L * (G + 2),
+                    decode_attention=L * (CALIB_TOKENS + G))
+        launches[arch] = dict.fromkeys(ops.LAUNCHES, 0)
+        for mode in ("asym_u8", "sym_i8"):
+            args = serve.build_parser().parse_args(
+                ["--arch", arch, "--requests", str(B), "--prompt-len",
+                 str(P), "--gen-len", str(G), "--calibrate", "1",
+                 "--quant-mode", mode])
+            tag = f"{arch} ({L} of {configs.get(arch).n_layers} layers) " \
+                  f"{mode}"
+            with PlainGuard():
+                ops.reset_launches()
+                prepared = serve.prepare(args, cfg=cfg)
+                r = serve.run(args, prepared)
+                counts = _launched("moe", tag, want)
+            sites = len(prepared.table.sites)
+            del prepared
+            for k in counts:
+                launches[arch][k] += counts[k]
+            assert sites == calib_pl * L, (sites, calib_pl * L)
+            assert r.out.shape == (B, G), r.out.shape
+            assert ((r.out >= 0) & (r.out < cfg.vocab)).all()
+            assert r.logits.shape == (B, 1, cfg.vocab), r.logits.shape
+            assert np.isfinite(r.logits).all(), "non-finite logits"
+            rows[f"{arch} {mode}"] = {
+                "layers": L, "prepare_s": r.t_prepare,
+                "prefill_ms": r.t_prefill * 1e3,
+                "prefill_tok_s": B * P / r.t_prefill,
+                "decode_ms_per_step": r.t_decode * 1e3 / (G - 1),
+                "peak_gib": r.peak_bytes / 2**30,
+                "fused_qdot_per_step": serve_pl * L,
+                "decode_attention_per_step": L,
+                "delta_matmul_per_calibration_token": calib_pl * L,
+                "calibration_sites": sites}
+            log(f"[moe] {tag}: prepare (init + prequantize + calibrate) "
+                f"{r.t_prepare:.3f}s, warmup {r.t_warmup:.3f}s; prefill "
+                f"{B}x{P} {r.t_prefill * 1e3:.3f} ms "
+                f"({B * P / r.t_prefill:.1f} tok/s); decode {r.t_decode * 1e3 / (G - 1):.3f} ms/step; "
+                f"peak device memory {r.peak_bytes / 2**30:.3f} GiB; a decode "
+                f"step launches {serve_pl * L} fused_qdot + {L} "
+                f"decode_attention, a calibration token {calib_pl * L} "
+                f"delta_matmul + {L} decode_attention; {sites} calibration "
+                f"sites; sample ids {r.out[0][:12].tolist()}")
+            del r
+            torch.cuda.empty_cache()
+    log("[moe] " + json.dumps({"moe": rows}))
+    return launches
+
+
+def moe_parity_one_layer():
+    """Phase 13's parity: one layer of each MoE config at full width,
+    served calibrated in both modes on the card with every kernel launch
+    held against its plain version (CpuShadow): on the CPU, or on the
+    card for a launch of more than MOE_CARD_GATHERS gathers."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    torch.set_num_threads(os.cpu_count() or 1)
+    b, p, g = 2, 4, 3
+    for arch, _ in MOE_RUNS:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=1)
+        calib_pl, serve_pl = moe_per_layer(cfg)
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(11),
+                               cfg, device="cuda")
+        rng = np.random.default_rng(12)
+        cal = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+        prompts = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+        for mode in ("asym_u8", "sym_i8"):
+            q = QuantConfig(design="design2", backend="fused", mode=mode,
+                            inference=True)
+            t0 = time.perf_counter()
+            with check.CpuShadow(card_gathers=MOE_CARD_GATHERS) as sh:
+                _, ids, lgs, _ = _serve_once(cfg, params, q, None, cal,
+                                             prompts, g, "cuda")
+            tag = f"{arch} (1 layer) {mode}"
+            _shadow_log(tag, sh, t0)
+            st = sh.stats
+            # calibration: p + 2 tokens; serving: the prefill and g - 1
+            # decode steps
+            want = {"delta_matmul": calib_pl * (p + 2),
+                    "fused_qdot_packed": serve_pl * g,
+                    "decode_attention": (p + 2) + (g - 1)}
+            got = {k: st[k]["calls"] for k in want}
+            assert got == want, (tag, got, want)
+            assert st["fused_qdot_packed"]["on_card"] > 0
+            assert st["fused_qdot_packed"]["on_card"] < want[
+                "fused_qdot_packed"]
+            assert all(bool(torch.isfinite(x).all()) for x in lgs)
+            log(f"[parity] {tag}: card ids {ids.tolist()}")
+        del params
+        torch.cuda.empty_cache()
+
+
+def row(kernel, shape, fn, iters, plain_ms, bounds, gathers=None, b=None,
+        offset=0):
+    """One timing row of phase 8.  ``gathers`` (the gather kernels: M*K*N
+    table reads a call) adds the gather rate over device_ms and its share
+    of the load/store units' lane rate, SMs x 32 lanes x the SM clock
+    read right after the timing, and the mean wavefronts a warp's gather
+    costs on the weights ``b`` (check.gather_wavefronts)."""
+    import torch
+    from repro_torch.kernels import check
+    from repro_torch.kernels.check import cuda_time
+    b_bytes, b_ops = bounds
+    r = {"kernel": kernel, "shape": shape, "ms": cuda_time(fn, iters),
+         "device_ms": cuda_time(fn, iters, queued=True),
+         "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops) * 1e3,
+         "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+    if gathers is not None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        clock = sm_clock_mhz()
+        rate = gathers / (r["device_ms"] * 1e-3)
+        r.update(sm_clock_mhz=clock, gathers_per_s=rate,
+                 gather_share=rate / (sms * 32 * clock * 1e6),
+                 wavefronts=check.gather_wavefronts(b, offset))
+    log("[timing] " + json.dumps(r))
+    return r
+
+
+def time_moe_kernels(dev):
+    """Phase 8 at the MoE family's shapes (phase 13's), asym_u8, each case
+    held against its plain version on the card before it is timed:
+    fused_qdot at every serve projection of a layer at decode and prefill
+    M, delta_matmul at every calibration projection, decode_attention at
+    the serve path's position (qk-norm off, the config's window).
+    Returns {kernel: {arch: {shape: row}}}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check, ops, ref
+    from repro_torch.kernels.check import cuda_time
+    moe_rows = {"fused_qdot": {}, "delta_matmul": {}, "decode_attention": {}}
+    for arch, _ in MOE_RUNS:
+        mcfg = configs.get(arch)
+        calib, serve = moe_shapes(mcfg)
+        for k in moe_rows:
+            moe_rows[k][arch] = {}
+        for i, (name, K, N, m_dec, m_pre, _) in enumerate(serve):
+            for M in (m_dec, m_pre):
+                c = check.fused_case(M, K, N, False, 980 + i, dev)
+                err = check.check_fused(c)["max_abs_err"]
+                r = row("fused_qdot", f"{arch} {name} M={M} K={K} N={N}",
+                        lambda: ops.fused_qdot_packed(**c),
+                        50 if M <= B else 10,
+                        cuda_time(lambda: check.fused_plain(c), 2),
+                        fused_bound(M, K, N), gathers=M * K * N, b=c["qw"])
+                moe_rows["fused_qdot"][arch][f"{name} M={M}"] = dict(
+                    r, max_abs_err=err)
+                del c
+        for i, (name, K, N, M, _) in enumerate(calib):
+            c = check.delta_case(M, K, N, False, 990 + i, dev)
+            err = check.check_delta(c)["max_abs_err"]
+            r = row("delta_matmul", f"{arch} {name} M={M} K={K} N={N} "
+                    f"(calibration)", lambda: ops.delta_matmul(**c), 50,
+                    cuda_time(lambda: check.delta_plain(c), 2),
+                    delta_bound(M, K, N))
+            moe_rows["delta_matmul"][arch][f"{name} M={M}"] = dict(
+                r, max_abs_err=err)
+        H, Kv, hd = mcfg.n_heads, mcfg.n_kv, mcfg.hd
+        pos = P + G // 2
+        c = check.attention_case(B, P + G, H, Kv, hd, 995, dev,
+                                 qk_norm=False, window=mcfg.window,
+                                 pos=[pos] * B)
+        err = check.check_attention(c)["max_abs_err"]
+        r = row("decode_attention", f"{arch} B={B} H={H} Kv={Kv} hd={hd} "
+                f"S={P + G} pos={pos} qk-norm off step",
+                lambda: ops.decode_attention_step(**c), 200,
+                cuda_time(lambda: ref.decode_attention_step_ref(**c), 20),
+                attention_bound(B, H, Kv, hd, pos))
+        moe_rows["decode_attention"][arch][f"B={B} S={P + G}"] = dict(
+            r, max_abs_err=err)
+        torch.cuda.empty_cache()
+    return moe_rows
+
+
 def time_kernels(cfg, dev):
     import torch
     from repro_torch.kernels import check, ops, ref
     from repro_torch.kernels.check import cuda_time
     unmerged, merged = projection_shapes(cfg)
-    rows, summary = [], {}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def row(kernel, shape, fn, iters, plain_ms, bounds, gathers=None,
-            b=None, offset=0):
-        """One timing row.  ``gathers`` (the gather kernels: M*K*N table
-        reads a call) adds the gather rate over device_ms and its share of
-        the load/store units' lane rate, SMs x 32 lanes x the SM clock
-        read right after the timing, and the mean wavefronts a warp's
-        gather costs on the weights ``b`` (check.gather_wavefronts)."""
-        b_bytes, b_ops = bounds
-        r = {"kernel": kernel, "shape": shape, "ms": cuda_time(fn, iters),
-             "device_ms": cuda_time(fn, iters, queued=True),
-             "plain_ms": plain_ms, "bound_ms": max(b_bytes, b_ops) * 1e3,
-             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
-        if gathers is not None:
-            clock = sm_clock_mhz()
-            rate = gathers / (r["device_ms"] * 1e-3)
-            r.update(sm_clock_mhz=clock, gathers_per_s=rate,
-                     gather_share=rate / (sms * 32 * clock * 1e6),
-                     wavefronts=check.gather_wavefronts(b, offset))
-        rows.append(r)
-        log("[timing] " + json.dumps(r))
-        return r
+    summary = {}
 
     def mean(rs, weights):
         tot = sum(weights)
@@ -1539,12 +1877,14 @@ def time_kernels(cfg, dev):
     return summary, plan_qat, serve_rows
 
 
-def kernels_json(summary, plan_qat, serve_rows, launches, errs):
+def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
+                 moe_launches, errs):
     """The kernels' JSON record: per kernel the launches of the paths'
     runs, the max error of phase 3 and the timings of phase 8 (for
     delta_matmul also its planned-QAT shape, ``plan_qat``, and the
     quantized unembed's, ``unembed``; for the three product kernels the
-    merged projections of phase 12 (c), ``serve``), each with the
+    merged projections of phase 12 (c), ``serve``; for the three serving
+    kernels the MoE family's shapes, ``moe``, per config), each with the
     launches of its own runs."""
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
@@ -1573,6 +1913,12 @@ def kernels_json(summary, plan_qat, serve_rows, launches, errs):
                 "launches": launches[f"{name}_{sub}"],
                 **{m: {k: r[k] for k in keys if k in r}
                    for m, r in by_m.items()}}
+        if name in moe_rows:
+            kernels[-1]["moe"] = {
+                arch: {"launches": moe_launches[arch][name],
+                       **{tag: {k: r[k] for k in keys if k in r}
+                          for tag, r in by_shape.items()}}
+                for arch, by_shape in moe_rows[name].items()}
     return kernels
 
 
@@ -1725,6 +2071,7 @@ def main() -> int:
         phase("3. kernels against their plain versions")
         errs = check_kernels(cfg, dev)
         check_train_kernels(cfg, dev, errs)
+        check_moe_kernels(dev, errs)
         phase("4. full-width serve (main path)")
         launches, table = serve_full_width(cfg)
         phase("5. slice parity: card vs CPU at 2 layers of full width")
@@ -1738,6 +2085,7 @@ def main() -> int:
     with torch.no_grad():
         phase("8. timing")
         summary, plan_qat, serve_rows = time_kernels(cfg, dev)
+        moe_rows = time_moe_kernels(dev)
         phase("9. trace of the decode step")
         trace_decode(cfg)
         phase("10. per-layer design plans at full width")
@@ -1751,6 +2099,9 @@ def main() -> int:
         more, apart = serve_options_runs(cfg, rows)
         log("[options] " + json.dumps({"options": rows}))
         serve_options_parity(cfg)
+        phase("13. the MoE family at full width")
+        moe_launches = moe_full_width()
+        moe_parity_one_layer()
     # the plan runs' launches join the paths' counts, but for the planned
     # QAT steps' delta_matmul launches (M = TB*TS), which stand apart
     # beside their own timing row
@@ -1766,7 +2117,8 @@ def main() -> int:
     for k, v in apart.items():
         launches[f"{k}_serve"] = v
     launches["delta_matmul_unembed"] = unembed_launches
-    kernels = kernels_json(summary, plan_qat, serve_rows, launches, errs)
+    kernels = kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
+                           moe_launches, errs)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

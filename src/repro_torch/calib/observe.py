@@ -5,7 +5,8 @@ records, per call site, the activation range (min/max/amax) plus 256-bin
 histograms of the quantized activation and weight operands.  Sites are
 named by the weight's params-tree path plus the layer index the decoder
 loop pushes: ``units.0.attn.wq@3`` is layer 3 of unit-slot 0's query
-projection.  The output is a ``CalibrationTable`` in the reference's
+projection; an MoE layer pushes the expert index after it
+(``units.0.moe.w_up@3.5``: expert 5 of layer 3).  The output is a ``CalibrationTable`` in the reference's
 JSON, so tables move freely between the two packages.
 """
 from __future__ import annotations
@@ -63,14 +64,20 @@ class Observer:
         if s["hist_w"] is None:
             s["w_shape"] = tuple(int(d) for d in pre.w.shape[-2:])
             if pre.q is not None:
-                qw = pre.q.to("cpu", torch.int64).numpy().reshape(-1)
+                # counted where the weights live (an expert's slice
+                # holds up to 59M entries at full width)
+                qw = pre.q.reshape(-1).to(torch.int64)
+                if cfg.signed:
+                    qw = qw + 128
+                s["hist_w"] = torch.bincount(qw, minlength=256).cpu() \
+                    .numpy()
             else:
                 qw = self._quantize(
                     pre.w.detach().to("cpu", torch.float64).numpy()
                     .reshape(-1), cfg, shift=False)
-            if cfg.signed:
-                qw = qw + 128
-            s["hist_w"] = np.bincount(qw, minlength=256)
+                if cfg.signed:
+                    qw = qw + 128
+                s["hist_w"] = np.bincount(qw, minlength=256)
 
     def _quantize(self, v: np.ndarray, cfg: QuantConfig,
                   shift: bool = True) -> np.ndarray:

@@ -1,8 +1,10 @@
 """Architecture configs: the ``ArchConfig`` dataclass and the registry.
 
 ``get(name)`` returns the full-size config, ``get_smoke(name)`` its
-reduced same-family config for CPU tests.  Only the dense family is
-served by this package so far (``qwen3-1.7b``).
+reduced same-family config for CPU tests.  The dense family
+(``qwen3-1.7b``) and the MoE family (``mixtral-8x7b``,
+``llama4-scout-17b-a16e``) are served by this package so far; the other
+families' configs are not ported yet.
 """
 from __future__ import annotations
 
@@ -50,6 +52,47 @@ class ArchConfig:
             raise ValueError((self.name, self.n_layers, self.pattern))
         return self.n_layers // len(self.pattern)
 
+    def _attn_params(self) -> int:
+        d = self.d_model
+        return d * self.n_heads * self.hd + 2 * d * self.n_kv * self.hd \
+            + self.n_heads * self.hd * d
+
+    def _mlp_params(self) -> int:
+        glu = self.mlp_kind in ("geglu", "swiglu")
+        return self.d_model * self.d_ff * (3 if glu else 2)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (for 6ND roofline math), as the
+        reference counts it."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        att, mlp = self._attn_params(), self._mlp_params()
+        per_layer = 0.0
+        for kind in self.pattern:
+            if kind == "attn":
+                per_layer += att + (mlp if f else 0)
+            elif kind == "moe":
+                per_layer += att + self.n_experts * mlp \
+                    + (d * self.shared_expert_ff * 3
+                       if self.shared_expert_ff else 0)
+            elif kind == "rec":
+                per_layer += 3 * d * self.d_rnn + self.d_rnn * d \
+                    + (mlp if f else 0)
+            elif kind in ("mlstm", "slstm"):
+                per_layer += (4 * d * d) if kind == "mlstm" else (5 * d * d)
+        total = per_layer / len(self.pattern) * self.n_layers + v * d
+        if self.enc_layers:
+            total += self.enc_layers * (att + mlp) + att * self.enc_layers
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        per_layer = self._attn_params() + self.top_k * self._mlp_params() \
+            + (d * self.shared_expert_ff * 3 if self.shared_expert_ff else 0)
+        return int(per_layer * self.n_layers + self.vocab * d)
+
 
 def canon(name: str) -> str:
     return name.replace("-", "_").replace(".", "_")
@@ -66,7 +109,7 @@ def get_smoke(name: str) -> ArchConfig:
 def make_smoke_batch(cfg: ArchConfig, batch: int = 2, seq: int = 16,
                      seed: int = 0) -> Dict[str, np.ndarray]:
     """Random tokens and labels (batch, seq) int32 from a numpy seed, as
-    the reference draws them (dense family: no frontend)."""
+    the reference draws them (dense and MoE families: no frontend)."""
     rng = np.random.default_rng(seed)
     return {"tokens": rng.integers(0, cfg.vocab, (batch, seq)).astype(
                 np.int32),

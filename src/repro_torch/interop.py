@@ -22,7 +22,8 @@ from .device import resolve
 def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
     """The reference's params tree (numpy leaves) as the port's params
     (tensors on ``device``), checking the stacked layer shapes against
-    ``cfg``."""
+    ``cfg``: the query projection, and for an MoE block the router, the
+    expert stacks and the shared expert."""
     dev = resolve(device)
 
     def conv(node):
@@ -33,12 +34,30 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
         return torch.from_numpy(np.array(node)).to(dev)
 
     params = conv(tree)
-    wq = params["units"][0]["attn"]["wq"]
-    want = (cfg.n_units, cfg.d_model, cfg.n_heads * cfg.hd)
-    if tuple(wq.shape) != want:
-        raise ValueError(f"params do not match {cfg.name}: "
-                         f"units.0.attn.wq is {tuple(wq.shape)}, "
-                         f"expected {want}")
+    L, D, E, F = cfg.n_units, cfg.d_model, cfg.n_experts, cfg.d_ff
+    unit = params["units"][0]
+    want = {"attn.wq": (L, D, cfg.n_heads * cfg.hd)}
+    if "moe" in unit:
+        # the reference's MoE tree: router (L, D, E), expert stacks
+        # (L, E, K, N), the shared expert a dense MLP
+        Fs = cfg.shared_expert_ff
+        want.update({"moe.router": (L, D, E), "moe.w_up": (L, E, D, F),
+                     "moe.w_down": (L, E, F, D)})
+        if "w_gate" in unit["moe"]:
+            want["moe.w_gate"] = (L, E, D, F)
+        if "shared" in unit["moe"]:
+            want.update({"moe.shared.w_up": (L, D, Fs),
+                         "moe.shared.w_down": (L, Fs, D)})
+            if "w_gate" in unit["moe"]["shared"]:
+                want["moe.shared.w_gate"] = (L, D, Fs)
+    for path, shape in want.items():
+        leaf = unit
+        for k in path.split("."):
+            leaf = leaf[k]
+        if tuple(leaf.shape) != shape:
+            raise ValueError(f"params do not match {cfg.name}: "
+                             f"units.0.{path} is {tuple(leaf.shape)}, "
+                             f"expected {shape}")
     return params
 
 

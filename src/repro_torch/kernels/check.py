@@ -334,21 +334,32 @@ def check_residual(case) -> dict:
 
 
 def fused_case(M, K, N, signed, seed, device, compensate=True,
-               design="design2"):
+               design="design2", sx=None):
+    """Inputs of one fused_qdot launch.  ``sx``: the static activation
+    scale, in place of the one the rows' range gives (zero point 0): 1e-8
+    is the scale calibration gives a site that saw only zero rows (an
+    MoE expert that got padding alone), which sends every nonzero row
+    to the ends of the grid."""
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(M, K)) * 1.7 + 0.3).astype(np.float32)
     off = 128 if signed else 0
     if signed:
-        sx = np.float32(np.abs(x).max() / 127.0)
-        zx = np.float32(0.0)
         qw = rng.integers(-128, 128, (K, N)).astype(np.int32)
         zw = np.zeros(N, np.float32)
     else:
-        sx = np.float32((x.max() - x.min()) / 255.0)
-        zx = np.float32(np.clip(np.round(-x.min() / sx), 0, 255))
         qw = rng.integers(0, 256, (K, N)).astype(np.int32)
         zw = rng.integers(100, 160, N).astype(np.float32)
-    x[0, :4] = (np.arange(4) + 0.5).astype(np.float32) * sx  # .5 edges
+    if sx is not None:
+        sx, zx = np.float32(sx), np.float32(0.0)
+        x[0, :4] = 0.0                    # zero (padding) entries
+    else:
+        if signed:
+            sx = np.float32(np.abs(x).max() / 127.0)
+            zx = np.float32(0.0)
+        else:
+            sx = np.float32((x.max() - x.min()) / 255.0)
+            zx = np.float32(np.clip(np.round(-x.min() / sx), 0, 255))
+        x[0, :4] = (np.arange(4) + 0.5).astype(np.float32) * sx  # .5 edges
     mu_r, mu_c, mu = _mean_field_tables(design, signed)
     sw = (rng.uniform(0.5, 2.0, N) * 1e-3).astype(np.float32)
     comp_col = mu_c[qw + off].sum(0, dtype=np.float64).astype(np.float32)
@@ -559,10 +570,11 @@ class CpuShadow:
         """names: the ops wrappers to shadow (the calibrated serving
         path's three by default, ``serving(backend)`` for a served run on
         another backend, CpuShadow.TRAIN for the training kernels).
-        ``card_gathers``: a delta_matmul launch of more than this many
-        gathers (M*K*N) is held against its plain version on the card
-        (delta_plain), not on the CPU (the vocabulary-wide unembed at
-        prefill size); ``stats`` counts those launches as ``on_card``."""
+        ``card_gathers``: a delta_matmul or fused_qdot launch of more
+        than this many gathers (M*K*N) is held against its plain version
+        on the card (delta_plain, fused_plain), not on the CPU (the
+        vocabulary-wide unembed at prefill size, the MoE experts at full
+        width); ``stats`` counts those launches as ``on_card``."""
         self.names = tuple(names)
         self.card_gathers = card_gathers
 
@@ -647,12 +659,16 @@ class CpuShadow:
             x, qw, dlut, scal, ntab, comp_r, signed=signed,
             compensate=compensate, return_int=True, unsigned=unsigned,
             bias=bias)
-        out, qx, acc = (t.cpu() for t in res)
-        w_out, w_qx, w_acc = ref.fused_qdot_ref(
-            _cpu(x), _cpu(qw), ops.widen_delta(_cpu(dlut), unsigned, bias),
-            *(_cpu(t) for t in (scal, ntab, comp_r)),
-            offset=128 if signed else 0, asym=not signed,
-            compensate=compensate, return_int=True)
+        case = dict(x=x, qw=qw, dlut=dlut, scal=scal, ntab=ntab,
+                    comp_r=comp_r, signed=signed, compensate=compensate,
+                    unsigned=unsigned, bias=bias)
+        gathers = x.shape[0] * x.shape[1] * qw.shape[1]
+        if self.card_gathers is not None and gathers > self.card_gathers:
+            self.stats["fused_qdot_packed"]["on_card"] += 1
+        else:
+            case = {k: _cpu(v) for k, v in case.items()}
+        out, qx, acc = (t.to(case["x"].device) for t in res)
+        w_out, w_qx, w_acc = fused_plain(case, return_int=True)
         assert torch.equal(qx, w_qx), "fused_qdot: qx card != cpu"
         assert torch.equal(acc, w_acc), "fused_qdot: acc card != cpu"
         err = float((out - w_out).abs().max())

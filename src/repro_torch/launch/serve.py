@@ -5,6 +5,13 @@ per-slot cache positions.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 4 --prompt-len 64 --gen-len 16 --calibrate 1
 
+--arch takes the dense qwen3-1.7b and the MoE mixtral-8x7b and
+llama4-scout-17b-a16e (the same path: the experts' projections are
+qdots of their own, one per expert).  Under --continuous an MoE
+request's ids can depend on its batch: an expert's capacity is shared
+by the tokens of a forward, so a token dropped in a full batch may be
+kept alone (the reference's too).
+
 Quantization precomputation ladder (quant/linear.py):
   --prequantize      cache weight quantization once (q/scale/zp/colsum)
   --per-channel      per-output-channel weight scales
@@ -200,15 +207,18 @@ class ContinuousResult:
 
 
 @torch.no_grad()
-def prepare(args, table=None) -> Prepared:
+def prepare(args, table=None, cfg=None) -> Prepared:
     """Build the kernels (on the card), draw the seeded params and apply
     the precomputation ladder (prepare_params; ``table``: an earlier
     Prepared's calibration table, for the same arguments).  A Prepared
     made from one set of arguments serves any run whose QuantConfig and
-    model arguments agree (``run(args, prepared)``)."""
+    model arguments agree (``run(args, prepared)``).  ``cfg``: the model
+    config to serve in place of ``--arch``'s (a depth-cut variant of it,
+    say)."""
     dev = resolve(args.device)
-    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(
-        args.arch)
+    if cfg is None:
+        cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(
+            args.arch)
     qcfg = quant_config(args)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False   # exact f32 unembed

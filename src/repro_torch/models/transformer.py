@@ -1,4 +1,5 @@
-"""The dense decoder: params init, the layer loop and the decode step.
+"""The decoder of the dense and MoE families: params init, the layer loop
+and the decode step.
 
 Params keep the reference's tree: ``{"embed", "final_norm", "units":
 [slot params with a leading n_units axis on every leaf]}``, so both
@@ -7,7 +8,9 @@ carries over (interop.params_from_numpy).  The stacked layers are walked
 by a Python loop (``_decoder_stack``), which pushes each layer index
 onto an active calibration observer the way the reference's pscan does.
 
-Only the dense pattern ``("attn",)`` is ported.
+The dense pattern ``("attn",)`` and the MoE pattern ``("moe",)`` (an
+attention block whose MLP is ``models.moe``; expert stacks (n_units,
+n_experts, K, N)) are ported.
 
 API:
   init_params(generator, cfg, device)              -> params
@@ -29,22 +32,41 @@ from ..device import resolve
 from ..quant import QuantConfig
 from ..quant.linear import QuantizedWeight, get_observer
 from . import layers
+from . import moe as moe_mod
+
+# (family, pattern) pairs the port serves and trains
+PORTED = {("dense", ("attn",)), ("moe", ("moe",))}
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or tuple(cfg.pattern) != ("attn",):
+def _check_ported(cfg: ArchConfig) -> None:
+    """Refuse a family or pattern the port has not ported yet, naming it.
+    The MoE experts take every mlp kind (models.moe); the dense MLP and
+    the shared expert take swiglu only (layers.mlp)."""
+    if (cfg.family, tuple(cfg.pattern)) not in PORTED:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense ('attn',) pattern is ported")
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(f"mlp kind {cfg.mlp_kind!r} not ported")
+            f"{cfg.name}: family {cfg.family!r} with pattern "
+            f"{tuple(cfg.pattern)} is not ported (ported: the dense "
+            f"('attn',) and the moe ('moe',) patterns)")
+    if cfg.mlp_kind != "swiglu" and (cfg.family == "dense"
+                                     or cfg.shared_expert_ff):
+        raise NotImplementedError(f"mlp kind {cfg.mlp_kind!r} not ported "
+                                  f"for a dense MLP")
+
+
+def _kind_window(cfg: ArchConfig, kind: str):
+    """Sliding window policy: 'attn' in hybrids is local attention."""
+    if cfg.family == "hybrid" and kind == "attn":
+        return cfg.window or 2048
+    return cfg.window
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig,
                 device="cuda") -> Dict:
     """Random params with the reference's shapes and init scales: dense
     kernels N(0, 1/in_dim), embedding N(0, 0.02^2), norm gains 1.
-    Drawn on ``generator``'s device, then moved to ``device``."""
-    _check_dense(cfg)
+    Drawn on ``generator``'s device, then moved to ``device``.  A moe
+    layer's block is attention plus models.moe.moe_init's params."""
+    _check_ported(cfg)
     dev = resolve(device)
     gdev = generator.device
     L, D, H, Kv, hd, F = (cfg.n_units, cfg.d_model, cfg.n_heads, cfg.n_kv,
@@ -64,7 +86,12 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     if cfg.qk_norm:
         unit["attn"]["q_norm"] = ones(L, hd)
         unit["attn"]["k_norm"] = ones(L, hd)
-    if cfg.d_ff:
+    if cfg.pattern == ("moe",):
+        unit["norm2"] = ones(L, D)
+        unit["moe"] = moe_mod.moe_init(generator, L, D, F, cfg.n_experts,
+                                       cfg.mlp_kind, cfg.shared_expert_ff,
+                                       device=dev)
+    elif cfg.d_ff:
         unit["norm2"] = ones(L, D)
         unit["mlp"] = {"w_gate": dense(D, F), "w_up": dense(D, F),
                        "w_down": dense(F, D)}
@@ -84,29 +111,39 @@ def take_layer(tree, i: int):
 
 
 def _block_apply(p, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
-                 cache=None):
-    """One decoder layer. Returns (x, new_cache)."""
+                 kind: str, cache=None):
+    """One decoder layer of ``kind`` ('attn' or 'moe'). Returns (x,
+    new_cache, aux), aux the MoE load-balancing term (the float 0.0 for
+    'attn', so the dense path launches nothing for it)."""
+    aux = 0.0
     h = layers.rmsnorm(x, p["norm1"])
     att, new_cache = layers.attention(
         p["attn"], h, positions, qcfg, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-        head_dim=cfg.hd, causal=True, window=cfg.window,
+        head_dim=cfg.hd, causal=True, window=_kind_window(cfg, kind),
         qk_norm=cfg.qk_norm, cache=cache, rope_theta=cfg.rope_theta)
     x = x + att
     if "norm2" in p:
-        x = x + layers.mlp(p["mlp"], layers.rmsnorm(x, p["norm2"]), qcfg,
-                           cfg.mlp_kind)
-    return x, new_cache
+        h2 = layers.rmsnorm(x, p["norm2"])
+        if kind == "moe":
+            y, aux = moe_mod.moe(p["moe"], h2, qcfg, n_experts=cfg.n_experts,
+                                 top_k=cfg.top_k, kind=cfg.mlp_kind,
+                                 shared=bool(cfg.shared_expert_ff))
+        else:
+            y = layers.mlp(p["mlp"], h2, qcfg, cfg.mlp_kind)
+        x = x + y
+    return x, new_cache, aux
 
 
 def _decoder_stack(params, x, positions, cfg: ArchConfig,
                    qcfg: QuantConfig, caches=None):
     """Loop the stacked layers. caches: list per pattern slot of stacked
     (n_units, ...) cache trees, appended to in place. Returns (x,
-    new_caches)."""
-    _check_dense(cfg)
+    new_caches, aux summed over the layers)."""
+    _check_ported(cfg)
     new_caches = []
+    aux_total = 0.0
     obs = get_observer()
-    for slot, _ in enumerate(cfg.pattern):
+    for slot, kind in enumerate(cfg.pattern):
         slot_params = params["units"][slot]
         sc = caches[slot] if caches is not None else None
         for i in range(cfg.n_units):
@@ -116,15 +153,16 @@ def _decoder_stack(params, x, positions, cfg: ArchConfig,
             if obs is not None:
                 obs.push(i)
             try:
-                x, _ = _block_apply(lp, x, positions, cfg, qcfg,
-                                    cache=cache_l)
+                x, _, a = _block_apply(lp, x, positions, cfg, qcfg, kind,
+                                       cache=cache_l)
             finally:
                 if obs is not None:
                     obs.pop()
+            aux_total = aux_total + a
         if sc is not None:
             sc = {"k": sc["k"], "v": sc["v"], "idx": sc["idx"] + x.shape[1]}
         new_caches.append(sc)
-    return x, new_caches
+    return x, new_caches, aux_total
 
 
 def _unstack(tree, n: int):
@@ -150,42 +188,46 @@ def _train_stack(params, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
     does under the reference's remat_scope; the dynamic quantizers are
     deterministic, so the recompute reproduces every quantized
     operand.  An active calibration observer gets each layer's index,
-    as in _decoder_stack."""
-    _check_dense(cfg)
+    as in _decoder_stack.  Returns (x, aux summed over the layers)."""
+    _check_ported(cfg)
     obs = get_observer()
+    aux_total = 0.0
 
-    def layer(lp, h):
-        return _block_apply(lp, h, positions, cfg, qcfg)[0]
+    for slot, kind in enumerate(cfg.pattern):
+        def layer(lp, h, kind=kind):
+            out, _, a = _block_apply(lp, h, positions, cfg, qcfg, kind)
+            return out, a
 
-    for slot, _ in enumerate(cfg.pattern):
         for i, lp in enumerate(_unstack(params["units"][slot],
                                         cfg.n_units)):
             if obs is not None:
                 obs.push(i)
                 try:
-                    x = layer(lp, x)
+                    x, a = layer(lp, x)
                 finally:
                     obs.pop()
             elif remat:
                 # the layer draws no random numbers: no RNG state to keep
-                x = torch_checkpoint.checkpoint(
+                x, a = torch_checkpoint.checkpoint(
                     functools.partial(layer, lp), x, use_reentrant=False,
                     preserve_rng_state=False)
             else:
-                x = layer(lp, x)
-    return x
+                x, a = layer(lp, x)
+            aux_total = aux_total + a
+    return x, aux_total
 
 
 def forward_train(params, batch, cfg: ArchConfig, qcfg: QuantConfig,
                   remat: bool = False):
     """batch: tokens (B, S), labels (B, S), optional mask (B, S).
-    Returns (loss, metrics) with metrics loss, aux (0 for the dense
-    family) and ppl_proxy = exp(min(loss, 20))."""
+    Returns (loss, metrics) with metrics loss (the masked mean NLL plus
+    0.01 aux), aux (the MoE load-balancing term summed over the layers, 0
+    for the dense family) and ppl_proxy = exp(min(loss, 20))."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = layers.embed(params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    x = _train_stack(params, x, positions, cfg, qcfg, remat)
+    x, aux = _train_stack(params, x, positions, cfg, qcfg, remat)
     x = layers.rmsnorm(x, params["final_norm"])
     logits = layers.unembed(params["embed"], x, qcfg)
     logp = torch.log_softmax(logits.float(), -1)
@@ -194,7 +236,7 @@ def forward_train(params, batch, cfg: ArchConfig, qcfg: QuantConfig,
     if mask is None:
         mask = torch.ones_like(nll)
     loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     loss = loss + 0.01 * aux
     return loss, {"loss": loss, "aux": aux,
                   "ppl_proxy": torch.exp(torch.clamp_max(loss, 20.0))}
@@ -208,8 +250,8 @@ def forward_decode(params, state, tokens, cfg: ArchConfig,
     init_decode_state) has its caches appended to in place and is handed
     back with the new positions."""
     x = layers.embed(params["embed"], tokens)
-    x, new_caches = _decoder_stack(params, x, None, cfg, qcfg,
-                                   caches=state["caches"])
+    x, new_caches, _ = _decoder_stack(params, x, None, cfg, qcfg,
+                                      caches=state["caches"])
     x = layers.rmsnorm(x, params["final_norm"])
     logits = layers.unembed(params["embed"], x, qcfg)
     return logits, dict(state, caches=new_caches)
@@ -217,11 +259,11 @@ def forward_decode(params, state, tokens, cfg: ArchConfig,
 
 def init_decode_state(cfg: ArchConfig, batch: int, s_max: int,
                       device="cuda", per_slot: bool = False) -> Dict:
-    """Zeroed bf16 KV caches stacked over the layers: k/v (n_units, B,
-    s_max, n_kv, hd) and idx (n_units,), or with ``per_slot`` idx
-    (n_units, B), each slot at its own depth (continuous batching:
-    launch.serve --continuous)."""
-    _check_dense(cfg)
+    """Zeroed bf16 KV caches stacked over the layers (an 'attn' or 'moe'
+    layer's attention cache): k/v (n_units, B, s_max, n_kv, hd) and idx
+    (n_units,), or with ``per_slot`` idx (n_units, B), each slot at its
+    own depth (continuous batching: launch.serve --continuous)."""
+    _check_ported(cfg)
     dev = resolve(device)
     L = cfg.n_units
     one = layers.make_cache(batch, s_max, cfg.n_kv, cfg.hd, device=dev,

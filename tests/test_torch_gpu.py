@@ -125,6 +125,129 @@ def test_fused_tile_prefill_shapes(cuda, signed, K, N):
         assert torch.equal(a, b)
 
 
+# the MoE family: routers (K, E) and experts (K, N) of mixtral-8x7b and
+# llama4-scout-17b-a16e; decode and prefill capacities of an expert
+ROUTER_SHAPES = [(4096, 8), (5120, 16)]
+EXPERT_SHAPES = [(4096, 14336), (14336, 4096), (5120, 8192), (8192, 5120)]
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("compensate", [False, True])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 20, 80, 256])
+@pytest.mark.parametrize("K,N", ROUTER_SHAPES)
+def test_fused_router_shapes_on_both_schedules(cuda, signed, compensate, M,
+                                               K, N):
+    """The MoE routers: N = 8 and 16 columns, far under one 128-column
+    tile, so every column past N is masked, on the split-K schedule (M <=
+    4) and the tile schedule (prefill); exact and repeatable."""
+    case = check.fused_case(M, K, N, signed, M + K + N, cuda,
+                            compensate=compensate)
+    check.check_fused(case)
+    first = ops.fused_qdot_packed(**case, return_int=True)
+    for a, b in zip(first, ops.fused_qdot_packed(**case, return_int=True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("M", [4, 20, 80])
+@pytest.mark.parametrize("K,N", EXPERT_SHAPES)
+def test_fused_expert_shapes(cuda, signed, M, K, N):
+    """An expert's projections at its decode capacity (4 rows) and at
+    prefill capacities (20: scout, 80: mixtral), with compensation."""
+    check.check_fused(check.fused_case(M, K, N, signed, M + K, cuda))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("M", [4, 80])
+@pytest.mark.parametrize("K,N", EXPERT_SHAPES[:1] + EXPERT_SHAPES[2:3])
+def test_fused_degenerate_activation_scale(cuda, signed, M, K, N):
+    """A static scale of 1e-8 (calibration's floor, for an expert that saw
+    only padding rows): every nonzero entry lands on an end of the grid,
+    zero entries on the zero point, as in the plain version."""
+    check.check_fused(check.fused_case(M, K, N, signed, 7 + M, cuda,
+                                       sx=1e-8))
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("K,N", ROUTER_SHAPES + EXPERT_SHAPES)
+def test_delta_kernel_calibration_moe_shapes(cuda, signed, K, N):
+    """Calibration's unfused products at the MoE shapes, M = 4 rows."""
+    check.check_delta(check.delta_case(4, K, N, signed, K + N, cuda))
+
+
+@pytest.mark.parametrize("H,Kv,window,S,pos", [
+    (32, 8, 4096, 4608, [4095, 4096, 4300, 4607]),   # mixtral, past the window
+    (32, 8, 4096, 80, [64, 70, 75, 79]),
+    (40, 8, None, 80, [64, 70, 75, 79]),               # scout: group 5
+    (40, 8, None, 66, [0, 1, 33, 65])])
+def test_attention_kernel_moe_groups(cuda, H, Kv, window, S, pos):
+    """Query groups of 4 and 5, head_dim 128, qk-norm off (the MoE
+    configs), mixtral's sliding window of 4096 with positions past it;
+    the step and the append."""
+    case = check.attention_case(4, S, H, Kv, 128, H + S, cuda,
+                                qk_norm=False, window=window, pos=pos)
+    check.check_attention(case)
+    check.check_attention_append(case)
+
+
+def test_moe_top_k_ties_on_the_card(cuda):
+    """The router's top-k on the card: a stable descending sort, so a tie
+    goes to the lower expert index as on the CPU (and in jax.lax.top_k)."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(0)
+    probs = torch.randint(0, 3, (4096, 16), generator=g).float()
+    for k in (1, 2):
+        want = moe.select_top_k(probs, k)
+        got = moe.select_top_k(probs.to(cuda), k)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("T,k,E", [(256, 2, 8), (256, 1, 16), (4, 2, 8),
+                                   (4, 1, 16)])
+def test_moe_dispatch_and_combine_on_the_card(cuda, T, k, E):
+    """The MoE glue between the kernels at the full-width shapes (D =
+    4096): the dispatch table, keep mask and slots, and the combine's
+    index_add_ (atomic adds on the card; at most two terms a token onto
+    zero), bit-equal to the CPU's, capacity drops included."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(T + k + E)
+    C = moe.capacity(T, k, E)
+    # a lopsided choice of experts, so the first ones overflow
+    idx = torch.stack([torch.randperm(E, generator=g)[:k] for _ in range(T)])
+    idx = torch.where(torch.rand((T, 1), generator=g) < 0.5,
+                      torch.arange(k)[None, :].expand(T, k), idx)
+    w = torch.rand((T, k), generator=g)
+    ye = torch.randn((E, C, 4096), generator=g)
+    table, keep, slot = moe.dispatch(idx, E, C)
+    assert not bool(keep.all()) or T <= 4
+    got = moe.dispatch(idx.to(cuda), E, C)
+    for a, b in zip(got, (table, keep, slot)):
+        assert torch.equal(a.cpu(), b)
+    want = moe.combine(ye, table, idx, slot, w * keep, T)
+    out = moe.combine(ye.to(cuda), got[0], idx.to(cuda), got[2],
+                      (w * keep).to(cuda), T)
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-a16e"])
+def test_moe_layer_serve_matches_cpu_launch_by_launch(cuda, arch):
+    """One MoE layer of each config (smoke widths) served calibrated on
+    the card: every kernel launch equals its plain version on the CPU
+    from the same inputs (check.CpuShadow), the routers, every expert and
+    the shared expert included."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(configs.get_smoke(arch), n_layers=1)
+    argv = ["--arch", arch, "--smoke", "--requests", "2", "--prompt-len",
+            "5", "--gen-len", "4", "--calibrate", "1"]
+    args = serve.build_parser().parse_args(argv)
+    with check.CpuShadow() as sh:
+        serve.run(args, serve.prepare(args, cfg=cfg))
+    assert all(st["calls"] > 0 for st in sh.stats.values()), sh.stats
+
+
 @pytest.mark.parametrize("per_slot", [False, True])
 @pytest.mark.parametrize("window", [None, 5])
 @pytest.mark.parametrize("hd,qk_norm", [(128, True), (16, True),

@@ -25,7 +25,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert "repro_torch.launch.train" in mods
     assert "repro_torch.train.optimizer" in mods
     for m in ("calib.plan", "calib.__main__", "core.cost",
-              "signed.recompose"):
+              "signed.recompose", "models.moe", "configs.mixtral_8x7b",
+              "configs.llama4_scout_17b_a16e"):
         assert "repro_torch." + m in mods
     code = (
         "import importlib, json, sys\n"
