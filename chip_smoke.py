@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and design-plan paths,
-the options of launch.serve and the MoE family, on one NVIDIA card and
-check them.
+the options of launch.serve, the MoE family and the other decoder-only
+families, on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -30,7 +30,18 @@ error and carries on:
                experts also at the degenerate activation scale 1e-8,
                delta_matmul at every calibration projection (M = 4), and
                decode_attention at query groups 32/8 and 40/8, qk-norm
-               off, mixtral's window of 4096 at S_max 4608 past it
+               off, mixtral's window of 4096 at S_max 4608 past it; the
+               other families' shapes (phase 14's configs, full width):
+               delta_matmul at every calibration projection and
+               fused_qdot at every serve projection (M = 4, both modes:
+               the mLSTM gates' N = 4, nemotron's K and N = 73,728, the
+               recurrent D x D and D x R), the int32 range at K = 73,728
+               through both (sums past 2^31 wrap as the reference's; the
+               card's plain version held to the CPU's too), and
+               decode_attention at 96/8 hd 192, 10/1 hd 256 under the
+               window of 2048 (positions past it, the chunk edges),
+               16/16 hd 256 and a group of 16 at hd 256 (shared memory
+               above 48 KiB)
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
@@ -71,9 +82,13 @@ error and carries on:
                ``unembed``); lut_matmul, residual_matmul and delta_matmul
                also at the merged projections' serve shapes (M = 4 and
                256: ``serve``); the three serving kernels at the MoE
-               family's shapes (``moe``, per config); every case of
-               these phase-12 and phase-13 shapes is held against its
-               plain version on the card before it is timed
+               family's shapes (``moe``, per config) and the other
+               families' (``families``, per config: every distinct serve
+               projection at M = 4 and 256, every calibration
+               projection, the attention at the serve path's position
+               and at 4095 of 4096); every case of these phase-12, -13
+               and -14 shapes is held against its plain version on the
+               card before it is timed
   9. trace     torch.profiler over full-width decode steps of the serve
                path: kernel launches per step by name, the device's busy
                share of the traced window, host-side op counts
@@ -117,6 +132,16 @@ error and carries on:
                modes with every launch held against its plain version
                (CpuShadow: the routers, wk/wv and attention on the CPU,
                the larger products on the card)
+ 14. families  gemma-7b at 4 of 28 layers, minitron-8b at 4 of 32,
+               nemotron-4-340b at 1 of 96 (the float32 master weights of
+               more layers do not fit beside their int8 copies and the
+               prequantizer's temporaries), recurrentgemma-2b (27 layers)
+               and xlstm-125m (12) whole, every width as published:
+               serve's prepare and run, --calibrate 1, 4 requests, prompt
+               64, gen 16, asym_u8 and sym_i8, launch counts held to the
+               path's (family_per_model); then one pattern unit of each
+               (1 layer dense, 3 recurrent) served calibrated in both
+               modes with every launch held against its plain version
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -155,6 +180,15 @@ MOE_RUNS = (("mixtral-8x7b", 4), ("llama4-scout-17b-a16e", 2))
 # its plain version on the card, not on the CPU (the experts, the merged
 # attention and the shared expert at full width)
 MOE_CARD_GATHERS = 1 << 24
+# the remaining decoder families (phase 14): every width of the
+# reference's CONFIG; the dense configs' depth cut so that their float32
+# master weights fit beside their int8 copies and the prequantizer's
+# temporaries (gemma-7b 1.1 GB a layer and a 3.1 GB embedding,
+# minitron-8b 0.7 GB and 4.2 GB, nemotron-4-340b 13.8 GB and 18.9 GB);
+# the recurrent ones at full depth (recurrentgemma-2b about 11 GB); one
+# pattern unit holds every block kind and kernel shape
+FAMILY_RUNS = (("gemma-7b", 4), ("minitron-8b", 4), ("nemotron-4-340b", 1),
+               ("recurrentgemma-2b", 27), ("xlstm-125m", 12))
 # H100 SXM data-sheet rates
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
@@ -173,12 +207,15 @@ SOURCES = {
 }
 
 
+T_START = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
 
 
 def phase(name):
-    log(f"\n=== {name} ===")
+    log(f"\n=== {name} === ({time.perf_counter() - T_START:.1f}s in)")
 
 
 def nvidia_smi_line() -> str:
@@ -273,12 +310,14 @@ def fused_bound(M, K, N):
     return nbytes / HBM_BPS, 2 * M * K * N / INT8_OPS
 
 
-def attention_bound(Bq, H, Kv, hd, pos):
-    # cache rows t <= pos are read (the kernel skips the rest), once each
+def attention_bound(Bq, H, Kv, hd, pos, window=None):
+    # cache rows t <= pos (within the window) are read (the kernel skips
+    # the rest), once each
+    rows = min(pos + 1, window) if window else pos + 1
     nbytes = (Bq * H * hd * 4 + 2 * Bq * Kv * hd * 4 + 2 * hd * 4
-              + 2 * Bq * (pos + 1) * Kv * hd * 2 + Bq * H * hd * 4
+              + 2 * Bq * rows * Kv * hd * 2 + Bq * H * hd * 4
               + 2 * Bq * Kv * hd * 2 + Bq * 4)
-    flops = 4 * Bq * H * (pos + 1) * hd
+    flops = 4 * Bq * H * rows * hd
     return nbytes / HBM_BPS, flops / F32_FLOPS
 
 
@@ -702,8 +741,10 @@ def _serve_once(cfg, params, q, table, cal, prompts, gen, dev, plan=None):
         tok, lg, st = step(tree, st, tok)
         toks.append(tok)
         lgs.append(lg)
+    # the first slot's KV cache (none where it is a recurrent state)
     return (table, torch.cat(toks, 1).cpu(), [x.float().cpu() for x in lgs],
-            {k: st["caches"][0][k].float().cpu() for k in ("k", "v")})
+            {k: v.float().cpu() for k, v in st["caches"][0].items()
+             if k in ("k", "v")})
 
 
 def _card_params(cfg, seed):
@@ -1605,6 +1646,361 @@ def moe_parity_one_layer():
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the remaining decoder families (dense gemma-7b, minitron-8b,
+# nemotron-4-340b; hybrid recurrentgemma-2b; ssm xlstm-125m)
+# ---------------------------------------------------------------------------
+
+def family_shapes(cfg):
+    """The projections of one pattern unit of a config: (calibration,
+    serve), each a list of (name, K, N), one entry a projection call:
+    calibration runs every projection unmerged, serving the merged ones
+    (attention's wqkv, a GLU MLP's w_gateup; the mLSTM keeps wq/wk/wv)."""
+    D, H, Kv, hd, F, R = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+                          cfg.d_ff, cfg.d_rnn)
+    glu = cfg.mlp_kind in ("geglu", "swiglu")
+    calib, serve = [], []
+    for kind in cfg.pattern:
+        if kind == "attn":
+            calib += [("wq", D, H * hd), ("wk", D, Kv * hd),
+                      ("wv", D, Kv * hd), ("wo", H * hd, D)]
+            serve += [("wqkv", D, (H + 2 * Kv) * hd), ("wo", H * hd, D)]
+        elif kind == "rec":
+            both = [("rec w_in/w_gate_x/w_gate_a", D, R)] * 3 + [
+                ("rec w_out", R, D)]
+            calib += both
+            serve += both
+        elif kind == "mlstm":
+            both = [("mlstm wq/wk/wv/wo", D, D)] * 4 + [
+                ("mlstm wi/wf", D, H)] * 2
+            calib += both
+            serve += both
+        elif kind == "slstm":
+            both = [("slstm wz/wi/wf/wo_gate/wo", D, D)] * 5
+            calib += both
+            serve += both
+        if kind in ("attn", "rec") and F:
+            if glu:
+                calib += [("w_gate/w_up", D, F)] * 2
+                serve += [("w_gateup", D, 2 * F)]
+            else:
+                calib += [("w_up", D, F)]
+                serve += [("w_up", D, F)]
+            calib += [("w_down", F, D)]
+            serve += [("w_down", F, D)]
+    return calib, serve
+
+
+def distinct(shapes):
+    """(name, K, N, calls) per distinct (K, N) of a family_shapes list."""
+    out = {}
+    for name, K, N in shapes:
+        if (K, N) in out:
+            n0, _, _, c = out[(K, N)]
+            out[(K, N)] = (n0, K, N, c + 1)
+        else:
+            out[(K, N)] = (name, K, N, 1)
+    return list(out.values())
+
+
+def family_per_model(cfg):
+    """(delta_matmul launches a calibration token, fused_qdot launches a
+    forward, decode_attention launches a decode step) of the whole model:
+    one projection a launch, one attention layer an attention launch."""
+    calib, serve = family_shapes(cfg)
+    n = cfg.n_units
+    return (len(calib) * n, len(serve) * n,
+            sum(k == "attn" for k in cfg.pattern) * n)
+
+
+def family_attention_cases(sms):
+    """decode_attention cases of phase 3 at the new configs' heads:
+    (tag, H, Kv, hd, window, B, S, pos).  The paths' positions (decode at
+    S = P + G, calibration at P + 2), long context, the chunk edges of a
+    4096-position cache, and recurrentgemma's window of 2048 with
+    positions past it; gemma's 16/16 and a group of 16 (the opt-in shared
+    memory) beside them."""
+    from repro_torch import configs
+    from repro_torch.kernels import check
+    cases = []
+    for arch in ("nemotron-4-340b", "recurrentgemma-2b", "gemma-7b"):
+        cfg = configs.get(arch)
+        H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+        w = cfg.window if cfg.family == "hybrid" else None
+        cases += [(f"{arch} decode", H, Kv, hd, w, B, P + G,
+                   [64, 70, 75, 79]),
+                  (f"{arch} calibration", H, Kv, hd, w, B, CALIB_TOKENS,
+                   [0, 1, 33, 65]),
+                  (f"{arch} long context", H, Kv, hd, w, B, 4096,
+                   [0, 1023, 2500, 4095])]
+        edges = check.attention_edge_positions(4096, B, Kv, hd, sms)
+        edges = edges[:B] + edges[-B:]
+        for i in range(0, len(edges), B):
+            cases.append((f"{arch} chunk edges", H, Kv, hd, w, B, 4096,
+                          (edges[i:i + B] + [4095] * B)[:B]))
+        if w:
+            S = w + 552
+            cases += [(f"{arch} window {w}, past it", H, Kv, hd, w, B, S,
+                       [w - 1, w, w + 100, S - 1])]
+            edges = check.attention_edge_positions(S, B, Kv, hd, sms)
+            for i in range(0, len(edges), B):
+                cases.append((f"{arch} window {w}, chunk edges", H, Kv, hd,
+                              w, B, S, (edges[i:i + B] + [S - 1] * B)[:B]))
+    cases.append(("group 16, hd 256 (shared memory above 48 KiB)", 16, 1,
+                  256, None, B, 4096, [0, 2047, 2048, 4095]))
+    return cases
+
+
+def check_family_kernels(dev, errs):
+    """Phase 3 at the new configs' full-width shapes: delta_matmul at
+    every calibration projection and fused_qdot at every serve projection
+    (M = B, both modes; the mLSTM gates' N = 4, nemotron's K = 73,728,
+    the recurrent D x D and D x R), the int32 range at K = 73,728 through
+    both kernels on both schedules (held also against the CPU's plain
+    version), and decode_attention at query groups 12 (hd 192), 10 (hd
+    256, Kv = 1, window 2048) and 16/16 (family_attention_cases).  Folds
+    the max errors into ``errs``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check
+    n = 0
+    for arch, _ in FAMILY_RUNS:
+        cfg = configs.get(arch)
+        calib, serve = (distinct(x) for x in family_shapes(cfg))
+        for signed in (False, True):
+            mode = "sym_i8" if signed else "asym_u8"
+            for i, (name, K, N, _) in enumerate(calib):
+                check.check_delta(check.delta_case(B, K, N, signed, 1400 + i,
+                                                   dev, device_draw=True))
+                n += 1
+            for i, (name, K, N, _) in enumerate(serve):
+                r = check.check_fused(check.fused_case(
+                    B, K, N, signed, 1450 + i, dev, device_draw=True))
+                errs["fused_qdot"] = max(errs["fused_qdot"],
+                                         r["max_abs_err"])
+                n += 1
+            log(f"[kernels] {arch} {mode}: delta_matmul at its "
+                f"{len(calib)} calibration shapes and fused_qdot at its "
+                f"{len(serve)} serve shapes (M = {B}): "
+                f"{[(k, nn) for _, k, nn, _ in serve]} held")
+        torch.cuda.empty_cache()
+    for design in ("design2", "initial"):
+        for M in (4, 5):
+            r = check.check_range(check.range_delta_case(M, 40, M, dev,
+                                                         design),
+                                  "delta_matmul")
+            n += 1
+            log(f"[kernels] delta_matmul int32 range {design} M={M} "
+                f"K={check.RANGE_K} N=40: {r['past_2_31']} outputs past "
+                f"2^31, bit-exact (card plain == CPU plain)")
+    for M in (4, 5):
+        for comp in (False, True):
+            r = check.check_range(check.range_fused_case(M, 40, M, dev,
+                                                         compensate=comp),
+                                  "fused_qdot")
+            n += 1
+            log(f"[kernels] fused_qdot int32 range M={M} K={check.RANGE_K} "
+                f"compensate={comp}: {r['past_2_31']} outputs past 2^31, "
+                f"max |err| {r['max_abs_err']:.3e}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0
+    for j, (tag, H, Kv, hd, w, Bq, S, pos) in enumerate(
+            family_attention_cases(sms)):
+        case = check.attention_case(Bq, S, H, Kv, hd, 1500 + j, dev,
+                                    qk_norm=False, window=w, pos=pos)
+        r = check.check_attention(case)
+        a = check.check_attention_append(case)
+        n += 2
+        worst = max(worst, r["row_flips"])
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       r["max_abs_err"])
+        log(f"[kernels] decode_attention {tag} H/Kv={H}/{Kv} hd={hd} S={S} "
+            f"pos={pos} window={w}: v rows bit-exact, {r['row_flips']} of "
+            f"{r['row_entries']} k-row entries a bf16 step apart, max |out "
+            f"err| {r['max_abs_err']:.3e}; two launches bit-equal; the "
+            f"append in place ({a['row_flips']} k-row entries apart)")
+        del case
+    log(f"[kernels] new families' shapes: {n} cases held against their "
+        f"plain versions")
+
+
+def families_full_width():
+    """Phase 14: serve each config of FAMILY_RUNS at full width and its
+    depth through launch.serve's prepare and run (--calibrate 1, 4
+    requests, prompt 64, gen 16), asym_u8 and sym_i8, each run's launch
+    counts read just after it and held to the path's (family_per_model).
+    Returns {arch: launches of its runs}."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    launches, rows = {}, {}
+    for arch, layers in FAMILY_RUNS:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        calib_pt, serve_pf, attn_ps = family_per_model(cfg)
+        want = dict.fromkeys(ops.LAUNCHES, 0)
+        want.update(delta_matmul=calib_pt * CALIB_TOKENS,
+                    fused_qdot=serve_pf * (G + 2),
+                    decode_attention=attn_ps * (CALIB_TOKENS + G))
+        launches[arch] = dict.fromkeys(ops.LAUNCHES, 0)
+        for mode in ("asym_u8", "sym_i8"):
+            args = serve.build_parser().parse_args(
+                ["--arch", arch, "--requests", str(B), "--prompt-len",
+                 str(P), "--gen-len", str(G), "--calibrate", "1",
+                 "--quant-mode", mode])
+            tag = f"{arch} ({layers} of {configs.get(arch).n_layers} " \
+                  f"layers) {mode}"
+            with PlainGuard():
+                ops.reset_launches()
+                prepared = serve.prepare(args, cfg=cfg)
+                r = serve.run(args, prepared)
+                counts = _launched("family", tag, want)
+            sites = len(prepared.table.sites)
+            del prepared
+            for k in counts:
+                launches[arch][k] += counts[k]
+            assert sites == calib_pt, (sites, calib_pt)
+            assert r.out.shape == (B, G), r.out.shape
+            assert ((r.out >= 0) & (r.out < cfg.vocab)).all()
+            assert r.logits.shape == (B, 1, cfg.vocab), r.logits.shape
+            assert np.isfinite(r.logits).all(), "non-finite logits"
+            rows[f"{arch} {mode}"] = {
+                "layers": layers, "prepare_s": r.t_prepare,
+                "prefill_ms": r.t_prefill * 1e3,
+                "prefill_tok_s": B * P / r.t_prefill,
+                "decode_ms_per_step": r.t_decode * 1e3 / (G - 1),
+                "peak_gib": r.peak_bytes / 2**30,
+                "fused_qdot_per_step": serve_pf,
+                "decode_attention_per_step": attn_ps,
+                "delta_matmul_per_calibration_token": calib_pt,
+                "calibration_sites": sites}
+            log(f"[family] {tag}: prepare (init + prequantize + calibrate) "
+                f"{r.t_prepare:.3f}s, warmup {r.t_warmup:.3f}s; prefill "
+                f"{B}x{P} {r.t_prefill * 1e3:.3f} ms "
+                f"({B * P / r.t_prefill:.1f} tok/s); decode "
+                f"{r.t_decode * 1e3 / (G - 1):.3f} ms/step; peak device "
+                f"memory {r.peak_bytes / 2**30:.3f} GiB; a decode step "
+                f"launches {serve_pf} fused_qdot + {attn_ps} "
+                f"decode_attention, a calibration token {calib_pt} "
+                f"delta_matmul + {attn_ps} decode_attention; {sites} "
+                f"calibration sites; sample ids {r.out[0][:12].tolist()}")
+            del r
+            torch.cuda.empty_cache()
+    log("[family] " + json.dumps({"families": rows}))
+    return launches
+
+
+def families_parity_one_unit():
+    """Phase 14's parity: one pattern unit of each config at full width
+    (1 layer of the dense configs, 3 of the recurrent ones), served
+    calibrated in both modes on the card with every kernel launch held
+    against its plain version (CpuShadow): on the CPU, or on the card for
+    a launch of more than MOE_CARD_GATHERS gathers."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    torch.set_num_threads(os.cpu_count() or 1)
+    b, p, g = 2, 3, 2
+    for arch, _ in FAMILY_RUNS:
+        base = configs.get(arch)
+        cfg = dataclasses.replace(base, n_layers=len(base.pattern))
+        calib_pt, serve_pf, attn_ps = family_per_model(cfg)
+        params = T.init_params(torch.Generator(device="cuda").manual_seed(13),
+                               cfg, device="cuda")
+        rng = np.random.default_rng(14)
+        cal = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+        prompts = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+        names = ("delta_matmul", "fused_qdot_packed") + (
+            ("decode_attention",) if attn_ps else ())
+        for mode in ("asym_u8", "sym_i8"):
+            q = QuantConfig(design="design2", backend="fused", mode=mode,
+                            inference=True)
+            t0 = time.perf_counter()
+            with check.CpuShadow(names, card_gathers=MOE_CARD_GATHERS) as sh:
+                _, ids, lgs, _ = _serve_once(cfg, params, q, None, cal,
+                                             prompts, g, "cuda")
+            tag = f"{arch} (one unit, {cfg.n_layers} layers) {mode}"
+            _shadow_log(tag, sh, t0)
+            want = {"delta_matmul": calib_pt * (p + 2),
+                    "fused_qdot_packed": serve_pf * g}
+            if attn_ps:
+                want["decode_attention"] = attn_ps * ((p + 2) + (g - 1))
+            got = {k: sh.stats[k]["calls"] for k in want}
+            assert got == want, (tag, got, want)
+            assert all(bool(torch.isfinite(x).all()) for x in lgs)
+            log(f"[parity] {tag}: card ids {ids.tolist()}")
+        del params
+        torch.cuda.empty_cache()
+
+
+def time_family_kernels(dev):
+    """Phase 8 at the new configs' shapes (phase 14's), asym_u8, each case
+    held against its plain version on the card before it is timed:
+    fused_qdot at every distinct serve projection at decode and prefill
+    M, delta_matmul at every distinct calibration projection (M = B),
+    decode_attention at the serve path's position and at 4095 of 4096
+    (qk-norm off, the config's window).  Returns {kernel: {arch: {shape:
+    row}}}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check, ops, ref
+    from repro_torch.kernels.check import cuda_time
+    rows = {"fused_qdot": {}, "delta_matmul": {}, "decode_attention": {}}
+    for arch, _ in FAMILY_RUNS:
+        cfg = configs.get(arch)
+        calib, serve = (distinct(x) for x in family_shapes(cfg))
+        for k in rows:
+            rows[k][arch] = {}
+        for i, (name, K, N, calls) in enumerate(serve):
+            for M in (B, B * P):
+                c = check.fused_case(M, K, N, False, 1600 + i, dev,
+                                     device_draw=True)
+                err = check.check_fused(c)["max_abs_err"]
+                big = M * K * N > (1 << 33)
+                plain = cuda_time(lambda: check.fused_plain(c), 1,
+                                  warmup=0 if big else 1)
+                r = row("fused_qdot", f"{arch} {name} M={M} K={K} N={N}",
+                        lambda: ops.fused_qdot_packed(**c),
+                        50 if M <= B else 10, plain, fused_bound(M, K, N),
+                        gathers=M * K * N, b=c["qw"])
+                rows["fused_qdot"][arch][f"{name} M={M}"] = dict(
+                    r, max_abs_err=err, calls_per_unit=calls)
+                del c
+        for i, (name, K, N, calls) in enumerate(calib):
+            c = check.delta_case(B, K, N, False, 1650 + i, dev,
+                                 device_draw=True)
+            err = check.check_delta(c)["max_abs_err"]
+            r = row("delta_matmul", f"{arch} {name} M={B} K={K} N={N} "
+                    f"(calibration)", lambda: ops.delta_matmul(**c), 50,
+                    cuda_time(lambda: check.delta_plain(c), 2),
+                    delta_bound(B, K, N))
+            rows["delta_matmul"][arch][f"{name} M={B}"] = dict(
+                r, max_abs_err=err, calls_per_unit=calls)
+        if "attn" in cfg.pattern:
+            H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+            w = cfg.window
+            for S, pos, it in ((P + G, P + G // 2, 200), (4096, 4095, 50)):
+                c = check.attention_case(B, S, H, Kv, hd, 1700 + S, dev,
+                                         qk_norm=False, window=w,
+                                         pos=[pos] * B)
+                err = check.check_attention(c)["max_abs_err"]
+                r = row("decode_attention", f"{arch} B={B} H={H} Kv={Kv} "
+                        f"hd={hd} S={S} pos={pos} window={w} step",
+                        lambda: ops.decode_attention_step(**c), it,
+                        cuda_time(lambda: ref.decode_attention_step_ref(**c),
+                                  20 if S < 1024 else 3),
+                        attention_bound(B, H, Kv, hd, pos, w))
+                rows["decode_attention"][arch][f"B={B} S={S}"] = dict(
+                    r, max_abs_err=err)
+                del c
+        torch.cuda.empty_cache()
+    return rows
+
+
 def row(kernel, shape, fn, iters, plain_ms, bounds, gathers=None, b=None,
         offset=0):
     """One timing row of phase 8.  ``gathers`` (the gather kernels: M*K*N
@@ -1878,14 +2274,14 @@ def time_kernels(cfg, dev):
 
 
 def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
-                 moe_launches, errs):
+                 moe_launches, errs, fam_rows, fam_launches):
     """The kernels' JSON record: per kernel the launches of the paths'
     runs, the max error of phase 3 and the timings of phase 8 (for
     delta_matmul also its planned-QAT shape, ``plan_qat``, and the
     quantized unembed's, ``unembed``; for the three product kernels the
     merged projections of phase 12 (c), ``serve``; for the three serving
-    kernels the MoE family's shapes, ``moe``, per config), each with the
-    launches of its own runs."""
+    kernels the MoE family's shapes, ``moe``, and phase 14's,
+    ``families``, per config), each with the launches of its own runs."""
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
     kernels = []
@@ -1913,12 +2309,15 @@ def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
                 "launches": launches[f"{name}_{sub}"],
                 **{m: {k: r[k] for k in keys if k in r}
                    for m, r in by_m.items()}}
-        if name in moe_rows:
-            kernels[-1]["moe"] = {
-                arch: {"launches": moe_launches[arch][name],
-                       **{tag: {k: r[k] for k in keys if k in r}
-                          for tag, r in by_shape.items()}}
-                for arch, by_shape in moe_rows[name].items()}
+        for sub, sub_rows, sub_launches in (
+                ("moe", moe_rows, moe_launches),
+                ("families", fam_rows, fam_launches)):
+            if name in sub_rows:
+                kernels[-1][sub] = {
+                    arch: {"launches": sub_launches[arch][name],
+                           **{tag: {k: r[k] for k in keys if k in r}
+                              for tag, r in by_shape.items()}}
+                    for arch, by_shape in sub_rows[name].items()}
     return kernels
 
 
@@ -2069,9 +2468,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     with torch.no_grad():
         phase("3. kernels against their plain versions")
+        t0 = time.perf_counter()
         errs = check_kernels(cfg, dev)
+        t1 = time.perf_counter()
         check_train_kernels(cfg, dev, errs)
+        t2 = time.perf_counter()
         check_moe_kernels(dev, errs)
+        t3 = time.perf_counter()
+        check_family_kernels(dev, errs)
+        log(f"[kernels] phase 3 seconds: serving path {t1 - t0:.1f}, "
+            f"training {t2 - t1:.1f}, MoE {t3 - t2:.1f}, other families "
+            f"{time.perf_counter() - t3:.1f}")
         phase("4. full-width serve (main path)")
         launches, table = serve_full_width(cfg)
         phase("5. slice parity: card vs CPU at 2 layers of full width")
@@ -2086,6 +2493,10 @@ def main() -> int:
         phase("8. timing")
         summary, plan_qat, serve_rows = time_kernels(cfg, dev)
         moe_rows = time_moe_kernels(dev)
+        t0 = time.perf_counter()
+        fam_rows = time_family_kernels(dev)
+        log(f"[timing] the other families' rows: "
+            f"{time.perf_counter() - t0:.1f}s")
         phase("9. trace of the decode step")
         trace_decode(cfg)
         phase("10. per-layer design plans at full width")
@@ -2102,6 +2513,9 @@ def main() -> int:
         phase("13. the MoE family at full width")
         moe_launches = moe_full_width()
         moe_parity_one_layer()
+        phase("14. the remaining decoder families at full width")
+        fam_launches = families_full_width()
+        families_parity_one_unit()
     # the plan runs' launches join the paths' counts, but for the planned
     # QAT steps' delta_matmul launches (M = TB*TS), which stand apart
     # beside their own timing row
@@ -2118,7 +2532,7 @@ def main() -> int:
         launches[f"{k}_serve"] = v
     launches["delta_matmul_unembed"] = unembed_launches
     kernels = kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
-                           moe_launches, errs)
+                           moe_launches, errs, fam_rows, fam_launches)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,10 +1,10 @@
 """Architecture configs: the ``ArchConfig`` dataclass and the registry.
 
 ``get(name)`` returns the full-size config, ``get_smoke(name)`` its
-reduced same-family config for CPU tests.  The dense family
-(``qwen3-1.7b``) and the MoE family (``mixtral-8x7b``,
-``llama4-scout-17b-a16e``) are served by this package so far; the other
-families' configs are not ported yet.
+reduced same-family config for CPU tests.  ``ARCHS`` lists the configs
+this package serves: every decoder-only config of the reference (the
+dense, MoE, hybrid and ssm families); the encoder-decoder and VLM
+configs are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +13,11 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+# the ported configs, one module each (dense, moe, hybrid, ssm)
+ARCHS = ("qwen3_1_7b", "gemma_7b", "minitron_8b", "nemotron_4_340b",
+         "mixtral_8x7b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
+         "xlstm_125m")
 
 
 @dataclass(frozen=True)
@@ -109,7 +114,7 @@ def get_smoke(name: str) -> ArchConfig:
 def make_smoke_batch(cfg: ArchConfig, batch: int = 2, seq: int = 16,
                      seed: int = 0) -> Dict[str, np.ndarray]:
     """Random tokens and labels (batch, seq) int32 from a numpy seed, as
-    the reference draws them (dense and MoE families: no frontend)."""
+    the reference draws them (the ported families take no frontend)."""
     rng = np.random.default_rng(seed)
     return {"tokens": rng.integers(0, cfg.vocab, (batch, seq)).astype(
                 np.int32),

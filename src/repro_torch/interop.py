@@ -19,11 +19,47 @@ from .configs import ArchConfig
 from .device import resolve
 
 
+def _expected_shapes(cfg: ArchConfig, kind: str) -> dict:
+    """The stacked shapes a pattern slot of ``kind`` must have, by path
+    within the slot's params."""
+    L, D, H, hd, E, F = (cfg.n_units, cfg.d_model, cfg.n_heads, cfg.hd,
+                         cfg.n_experts, cfg.d_ff)
+    want = {}
+    if kind in ("attn", "moe"):
+        want.update({"attn.wq": (L, D, H * hd),
+                     "attn.wk": (L, D, cfg.n_kv * hd),
+                     "attn.wo": (L, H * hd, D)})
+    if kind == "moe":
+        # the reference's MoE tree: router (L, D, E), expert stacks
+        # (L, E, K, N), the shared expert a dense MLP
+        want.update({"moe.router": (L, D, E), "moe.w_up": (L, E, D, F),
+                     "moe.w_down": (L, E, F, D)})
+    elif kind == "rec":
+        R = cfg.d_rnn
+        want.update({"rec.w_in": (L, D, R), "rec.w_gate_x": (L, D, R),
+                     "rec.w_gate_a": (L, D, R), "rec.a_param": (L, R),
+                     "rec.conv": (L, 4, R), "rec.w_out": (L, R, D)})
+    elif kind == "mlstm":
+        want.update({f"mlstm.{w}": (L, D, D) for w in ("wq", "wk", "wv",
+                                                       "wo")})
+        want.update({"mlstm.wi": (L, D, H), "mlstm.wf": (L, D, H),
+                     "mlstm.norm": (L, D)})
+    elif kind == "slstm":
+        want.update({f"slstm.{w}": (L, D, D) for w in ("wz", "wi", "wf",
+                                                       "wo_gate", "wo")})
+        want["slstm.norm"] = (L, D)
+    if kind in ("attn", "rec") and F:
+        want.update({"mlp.w_up": (L, D, F), "mlp.w_down": (L, F, D)})
+    return want
+
+
 def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
     """The reference's params tree (numpy leaves) as the port's params
     (tensors on ``device``), checking the stacked layer shapes against
-    ``cfg``: the query projection, and for an MoE block the router, the
-    expert stacks and the shared expert."""
+    ``cfg``: one unit per pattern slot, and in each the projections of
+    its kind (attention; the MoE router, expert stacks and shared
+    expert; the RG-LRU's, mLSTM's and sLSTM's kernels, gates, conv and
+    norm gains; the MLP of an attention or recurrent block)."""
     dev = resolve(device)
 
     def conv(node):
@@ -34,30 +70,37 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
         return torch.from_numpy(np.array(node)).to(dev)
 
     params = conv(tree)
+    units = params["units"]
+    if len(units) != len(cfg.pattern):
+        raise ValueError(f"params do not match {cfg.name}: {len(units)} "
+                         f"units, expected one per slot of {cfg.pattern}")
     L, D, E, F = cfg.n_units, cfg.d_model, cfg.n_experts, cfg.d_ff
-    unit = params["units"][0]
-    want = {"attn.wq": (L, D, cfg.n_heads * cfg.hd)}
-    if "moe" in unit:
-        # the reference's MoE tree: router (L, D, E), expert stacks
-        # (L, E, K, N), the shared expert a dense MLP
-        Fs = cfg.shared_expert_ff
-        want.update({"moe.router": (L, D, E), "moe.w_up": (L, E, D, F),
-                     "moe.w_down": (L, E, F, D)})
-        if "w_gate" in unit["moe"]:
-            want["moe.w_gate"] = (L, E, D, F)
-        if "shared" in unit["moe"]:
-            want.update({"moe.shared.w_up": (L, D, Fs),
-                         "moe.shared.w_down": (L, Fs, D)})
-            if "w_gate" in unit["moe"]["shared"]:
-                want["moe.shared.w_gate"] = (L, D, Fs)
-    for path, shape in want.items():
-        leaf = unit
-        for k in path.split("."):
-            leaf = leaf[k]
-        if tuple(leaf.shape) != shape:
-            raise ValueError(f"params do not match {cfg.name}: "
-                             f"units.0.{path} is {tuple(leaf.shape)}, "
-                             f"expected {shape}")
+    for slot, kind in enumerate(cfg.pattern):
+        unit = units[slot]
+        want = _expected_shapes(cfg, kind)
+        glu = cfg.mlp_kind in ("geglu", "swiglu")
+        if "mlp" in want and glu:
+            want["mlp.w_gate"] = (L, D, F)
+        if kind == "moe":
+            Fs = cfg.shared_expert_ff
+            if "w_gate" in unit["moe"]:
+                want["moe.w_gate"] = (L, E, D, F)
+            if "shared" in unit["moe"]:
+                want.update({"moe.shared.w_up": (L, D, Fs),
+                             "moe.shared.w_down": (L, Fs, D)})
+                if "w_gate" in unit["moe"]["shared"]:
+                    want["moe.shared.w_gate"] = (L, D, Fs)
+        for path, shape in want.items():
+            leaf = unit
+            for k in path.split("."):
+                if k not in leaf:
+                    raise ValueError(f"params do not match {cfg.name}: "
+                                     f"units.{slot}.{path} is missing")
+                leaf = leaf[k]
+            if tuple(leaf.shape) != shape:
+                raise ValueError(f"params do not match {cfg.name}: "
+                                 f"units.{slot}.{path} is "
+                                 f"{tuple(leaf.shape)}, expected {shape}")
     return params
 
 

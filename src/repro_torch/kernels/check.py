@@ -105,14 +105,28 @@ def cuda_time(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
                          "queued the timed calls")
 
 
-def delta_case(M, K, N, signed, seed, device, design="design2"):
+def _weight_operand(rng, seed, K, N, lo, hi, device,
+                    device_draw: bool) -> torch.Tensor:
+    """A (K, N) int32 operand uniform in [lo, hi): numpy's draw from
+    ``rng``, or with ``device_draw`` torch's on ``device`` from ``seed``
+    (numpy's draw of a weight of 1e8-1e9 entries takes host seconds)."""
+    if not device_draw:
+        return torch.from_numpy(rng.integers(lo, hi, (K, N)).astype(
+            np.int32))
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(lo, hi, (K, N), generator=g, device=device,
+                         dtype=torch.int32)
+
+
+def delta_case(M, K, N, signed, seed, device, design="design2",
+               device_draw=False):
     """Inputs of one delta_matmul launch, the design's delta table as
     ops.narrow_delta narrows it (biased uint16 for the unsigned
-    'initial')."""
+    'initial'); the weights drawn on the device with ``device_draw``."""
     rng = np.random.default_rng(seed)
     lo, hi = (-128, 128) if signed else (0, 256)
     a = torch.from_numpy(rng.integers(lo, hi, (M, K)).astype(np.int32))
-    b = torch.from_numpy(rng.integers(lo, hi, (K, N)).astype(np.int32))
+    b = _weight_operand(rng, seed, K, N, lo, hi, device, device_draw)
     d, unsigned, bias = ops.narrow_delta(build_delta_lut(design, signed))
     return dict(a=a.to(device),
                 b=b.to(torch.int8 if signed else torch.uint8).to(device),
@@ -127,6 +141,69 @@ def delta_plain(case) -> torch.Tensor:
         case["a"], case["b"],
         ops.widen_delta(case["dlut"], case.get("unsigned", False),
                         case.get("bias", 0)), case["offset"])
+
+
+# nemotron-4-340b's w_down: 255 * 255 * K passes 2^31 (from K = 33,026)
+RANGE_K = 73_728
+
+
+def range_delta_case(M, N, seed, device, design="design2", K=RANGE_K):
+    """asym_u8 delta_matmul operands at the top of the grid (row 0 and
+    column 0 all 255, the rest in [220, 255]) at K = RANGE_K, so that
+    every exact product passes 2^31 and the int32 sums wrap modulo 2^32,
+    as the reference's int32 accumulation does (for 'initial' the delta
+    sum passes it too)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(220, 256, (M, K)).astype(np.int32)
+    b = rng.integers(220, 256, (K, N)).astype(np.int32)
+    a[0], b[:, 0] = 255, 255
+    d, unsigned, bias = ops.narrow_delta(build_delta_lut(design, False))
+    return dict(a=torch.from_numpy(a).to(device),
+                b=torch.from_numpy(b).to(torch.uint8).to(device),
+                dlut=d.to(device), offset=0, unsigned=unsigned, bias=bias)
+
+
+def range_fused_case(M, N, seed, device, compensate=True, K=RANGE_K):
+    """asym_u8 fused_qdot operands whose activations quantize to the top
+    of the grid (row 0 to 255) against range_delta_case's weights: the
+    int32 accumulator wraps past 2^31 as the reference's does."""
+    case = fused_case(M, K, N, False, seed, device, compensate=compensate)
+    rng = np.random.default_rng(seed + 1)
+    sx, zx = np.float32(0.01), np.float32(3.0)
+    x = ((rng.integers(225, 256, (M, K)) - zx) * sx).astype(np.float32)
+    x[0] = 5.0
+    qw = range_delta_case(1, N, seed, "cpu", K=K)["b"]
+    scal = case["scal"].cpu().clone()
+    scal[0], scal[1] = float(sx), float(zx)
+    ntab = case["ntab"].cpu().clone()
+    ntab[2] = qw.to(torch.int32).sum(0).float()
+    return dict(case, x=torch.from_numpy(x).to(device), qw=qw.to(device),
+                scal=scal.to(device), ntab=ntab.to(device))
+
+
+def check_range(case, kind: str) -> dict:
+    """A range case (range_delta_case or range_fused_case) through its
+    kernel against the plain version on the card, and the card's plain
+    version against the CPU's (the int32 words wrap alike on both).
+    Returns the check's result with ``past_2_31``, the outputs whose
+    exact product passes 2^31."""
+    cpu = {k: _cpu(v) for k, v in case.items()}
+    if kind == "delta_matmul":
+        r = check_delta(case)
+        assert torch.equal(delta_plain(case).cpu(), delta_plain(cpu)), \
+            "delta_matmul: the card's plain version != the CPU's"
+        a, b = cpu["a"], cpu["b"]
+    else:
+        r = check_fused(case)
+        w_out, a, w_acc = fused_plain(cpu, return_int=True)
+        out, _, acc = fused_plain(case, return_int=True)
+        assert torch.equal(acc.cpu(), w_acc) and torch.equal(out.cpu(),
+                                                             w_out), \
+            "fused_qdot: the card's plain version != the CPU's"
+        b = cpu["qw"]
+    past = int((torch.matmul(a.double(), b.double()) >= 2**31).sum())
+    assert past > 0, "the range case does not pass 2^31"
+    return dict(r, past_2_31=past)
 
 
 def check_delta(case) -> dict:
@@ -334,20 +411,22 @@ def check_residual(case) -> dict:
 
 
 def fused_case(M, K, N, signed, seed, device, compensate=True,
-               design="design2", sx=None):
+               design="design2", sx=None, device_draw=False):
     """Inputs of one fused_qdot launch.  ``sx``: the static activation
     scale, in place of the one the rows' range gives (zero point 0): 1e-8
     is the scale calibration gives a site that saw only zero rows (an
     MoE expert that got padding alone), which sends every nonzero row
-    to the ends of the grid."""
+    to the ends of the grid.  ``device_draw``: the weights drawn on the
+    device."""
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(M, K)) * 1.7 + 0.3).astype(np.float32)
     off = 128 if signed else 0
     if signed:
-        qw = rng.integers(-128, 128, (K, N)).astype(np.int32)
+        qw = _weight_operand(rng, seed, K, N, -128, 128, device,
+                             device_draw)
         zw = np.zeros(N, np.float32)
     else:
-        qw = rng.integers(0, 256, (K, N)).astype(np.int32)
+        qw = _weight_operand(rng, seed, K, N, 0, 256, device, device_draw)
         zw = rng.integers(100, 160, N).astype(np.float32)
     if sx is not None:
         sx, zx = np.float32(sx), np.float32(0.0)
@@ -362,12 +441,20 @@ def fused_case(M, K, N, signed, seed, device, compensate=True,
         x[0, :4] = (np.arange(4) + 0.5).astype(np.float32) * sx  # .5 edges
     mu_r, mu_c, mu = _mean_field_tables(design, signed)
     sw = (rng.uniform(0.5, 2.0, N) * 1e-3).astype(np.float32)
-    comp_col = mu_c[qw + off].sum(0, dtype=np.float64).astype(np.float32)
+    # the weights' column sums in float64, rounded once, where qw lies
+    # (K in slices: a weight drawn on the card has up to 1e9 entries)
+    mu_t = torch.from_numpy(mu_c.astype(np.float64)).to(qw.device)
+    acc = torch.zeros(N, dtype=torch.float64, device=qw.device)
+    for k0 in range(0, K, 2048):
+        acc += mu_t[qw[k0:k0 + 2048].long() + off].sum(0)
+    comp_col = acc.float().cpu().numpy()
+    colsum = qw.sum(0, dtype=torch.int64).float().cpu().numpy()
     scal = np.array([sx, zx, mu, 0, 0, 0, 0, 0], np.float32)
-    ntab = np.stack([sw, zw, qw.sum(0).astype(np.float32), comp_col])
+    ntab = np.stack([sw, zw, colsum, comp_col])
 
     def t(v, dtype=None):
-        v = torch.from_numpy(np.ascontiguousarray(v))
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.ascontiguousarray(v))
         return (v if dtype is None else v.to(dtype)).to(device)
     dlut, unsigned, bias = ops.narrow_delta(build_delta_lut(design, signed))
     return dict(x=t(x), qw=t(qw, torch.int8 if signed else torch.uint8),

@@ -53,10 +53,23 @@
 //    to the caches after the first cluster barrier, when every block of
 //    the (kv head, slot) has read its tiles: no block reads row pos[b]
 //    while it changes, and no block uses its stale copy.
+//  * Query groups.  G, a template bound on the group H/Kv, is 1, 2, 4, 8
+//    or 16; a lane keeps G * VPL * VEC query values in registers.  Groups
+//    of 9-16 (nemotron-4-340b's 96/8 = 12, recurrentgemma-2b's 10/1) take
+//    the G = 16 instantiation, built with __launch_bounds__(128, 2) so
+//    its 128 query registers a lane fit without capping the others' at
+//    128; groups up to 8 launch the instantiations they always did.  It
+//    runs 2 blocks an SM, so the wrapper's split (planned at 3 an SM)
+//    takes two waves at many (kv head, slot) pairs: nemotron-4-340b's
+//    96/8 at 4,096 positions, 384 blocks.  A split into one wave (256
+//    blocks of longer chunks) measured slower (scripts/time_ab.py).
 //  * Shared memory stays under 48 KiB for the wrapper's tiles at every
-//    hd and group the kernel takes (the launcher refuses a tile that
-//    does not fit), so no attribute is set; clusters of
-//    more than 8 blocks take an opt-in attribute, set once per kernel.
+//    hd with a group up to 12 (the scores and queries of a group of 12
+//    at hd 192 take 11 KiB beside a 32 KiB tile); above that (a group of
+//    16 at hd 256) the launcher sets the kernel's dynamic shared memory
+//    attribute to what the launch needs, up to 227 KiB, once per size.
+//    Clusters of more than 8 blocks take an opt-in attribute, set once
+//    per kernel.
 //
 // Where the numbers can go wrong:
 //  * The new k/v rows are rounded through bf16 (round to nearest even)
@@ -87,11 +100,12 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxGroup = 8;
+constexpr int kMaxGroup = 16;
 constexpr int kMaxHd = 256;
 constexpr int kPPL = 4;                 // rope pairs a lane holds: hd <= 256
 constexpr int kMaxChunks = 16;          // a cluster's blocks (non-portable)
-constexpr size_t kSmemLimit = 48 * 1024;
+constexpr size_t kSmemLimit = 48 * 1024;        // without an attribute
+constexpr size_t kSmemOptIn = 227 * 1024;       // a block's most, opted in
 
 __host__ __device__ __forceinline__ size_t up16(size_t v) {
   return (v + 15) / 16 * 16;
@@ -209,15 +223,18 @@ struct Args {
 };
 
 // One block per (chunk, kv head, slot); the chunks of a (kv head, slot)
-// form one cluster.  G: a bound on the query group H/Kv (1, 2, 4 or 8).
-// VEC: bf16 values a copy and a vector load move, 8 (16 bytes) or 2
-// (4 bytes, where hd % 8 != 0).
+// form one cluster.  G: a bound on the query group H/Kv (1, 2, 4, 8 or
+// 16).  VEC: bf16 values a copy and a vector load move, 8 (16 bytes) or
+// 2 (4 bytes, where hd % 8 != 0).
+template <int G>
+__host__ __device__ constexpr int group_slots() { return G > 8 ? G : 8; }
+
 template <int G, int VEC>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, G > 8 ? 2 : 4)
 decode_attention_kernel(const __grid_constant__ Args a) {
   using L = Lanes<kPPL>;
   // vectors of a row a lane holds in the score pass: a lane keeps
-  // G * VPL * VEC query values in registers (32, or 64 at G = 8)
+  // G * VPL * VEC query values in registers (32, 64 at G = 8, 128 at 16)
   constexpr int VPL = VEC == 8 ? (G < 4 ? 4 / G : 1) : (G < 4 ? 16 / G : 4);
   constexpr int E = VPL * VEC;
   constexpr int HPW = (G + kWarps - 1) / kWarps;   // heads a warp softmaxes
@@ -237,7 +254,7 @@ decode_attention_kernel(const __grid_constant__ Args a) {
   __nv_bfloat16* vr = kr + hd;                   // the new rows, bf16
   float* qs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(kr) + up16((size_t)4 * hd));
   float* sc = qs + group * hd;                   // [group][sr]
-  __shared__ float w_alpha[kMaxGroup], w_den[kMaxGroup];
+  __shared__ float w_alpha[group_slots<G>()], w_den[group_slots<G>()];
 
   // K or V rows [t0, t1) of the tile at c0 + k*sr, skipping row `skip`;
   // one commit
@@ -542,8 +559,18 @@ decode_attention_kernel(const __grid_constant__ Args a) {
 template <int G, int VEC>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.sr, a.hd, a.H / a.Kv);
-  if (smem + 2 * sizeof(float) * kMaxGroup > kSmemLimit) return cudaErrorInvalidValue;
+  const size_t fixed = 2 * sizeof(float) * group_slots<G>();   // w_alpha, w_den
+  if (smem + fixed > kSmemOptIn) return cudaErrorInvalidValue;
   auto kern = decode_attention_kernel<G, VEC>;
+  // above 48 KiB the dynamic shared memory needs the attribute, raised
+  // once to each larger size a launch asks for
+  static size_t smem_allowed = kSmemLimit - fixed;
+  if (smem > smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = smem;
+  }
   // clusters of more than 8 blocks need an opt-in, once per kernel
   static bool wide_clusters = false;
   if (a.chunks > 8 && !wide_clusters) {
@@ -574,7 +601,8 @@ cudaError_t launch_vec(const Args& a, int B, cudaStream_t stream) {
   if (group <= 1) return launch<1, VEC>(a, B, stream);
   if (group <= 2) return launch<2, VEC>(a, B, stream);
   if (group <= 4) return launch<4, VEC>(a, B, stream);
-  return launch<8, VEC>(a, B, stream);
+  if (group <= 8) return launch<8, VEC>(a, B, stream);
+  return launch<16, VEC>(a, B, stream);
 }
 
 }  // namespace
@@ -591,9 +619,9 @@ cudaError_t launch_vec(const Args& a, int B, cudaStream_t stream) {
 // positions are split into `chunks` <= 16 chunks of `rows` (chunks *
 // rows >= S, the last chunk not empty), one cluster of `chunks` blocks
 // per (kv head, slot); a chunk is read in tiles of `tile_rows` <= rows
-// rows (ops.attention_tile_rows), refused where the tile's shared memory
-// exceeds 48 KiB.  window <= 0: no window.  hd even and <= 256, H / Kv
-// <= 8.  Returns the cudaError_t of the launch.
+// rows (ops.attention_tile_rows), refused where the block's shared memory
+// exceeds 227 KiB.  window <= 0: no window.  hd even and <= 256, H / Kv
+// <= 16.  Returns the cudaError_t of the launch.
 extern "C" int decode_attention_launch(
     const void* q, long long q_bs, const void* kn, long long k_bs,
     const void* vn, long long v_bs, const void* q_gain, const void* k_gain,

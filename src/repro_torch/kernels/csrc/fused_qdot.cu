@@ -45,20 +45,27 @@
 //    reference's order (x/sx is an IEEE division), so qx and every
 //    epilogue step round exactly as the plain version's separate ops.
 //  * Float sums: the integer accumulator and rowsum(qx) are exact in any
-//    order, atomics included.  rowsum(mu_r[qx+off]) is a float sum taken
-//    once per row by the pre-pass in a fixed order (each thread in
-//    increasing k, then a fixed shuffle tree and the warps in order), so
-//    the output is the same from run to run and does not depend on the
-//    schedule; it is not torch's order, so with compensation on the
-//    output agrees with the plain version to a stated tolerance (see
-//    kernels/check.py), not bit for bit.
-//  * Overflow: |acc| <= 6144 * 255^2 + 6144 * 2^15 < 2^31 at the path's
-//    largest K.
+//    order, atomics included.  rowsum(mu_r[qx+off]) is summed once per
+//    row by the pre-pass in float64 (each thread in increasing k, then a
+//    fixed shuffle tree and the warps in order) and rounded once to
+//    float32, as the plain version sums it: the float64 sum of K float32
+//    terms is within 1e-16 of exact, so both round to the same float32
+//    (they could differ only where the exact sum lies within that of a
+//    float32 rounding boundary).  A float32 sum in another order than
+//    the plain version's was an ulp apart now and then, which the asym
+//    epilogue's cancellation (acc and zx * colsum near 1e9 at K =
+//    18,432) turned into output gaps past check.FUSED_ATOL_REL; the
+//    compensated output now agrees with the plain version bit for bit,
+//    as the uncompensated one always did.
+//  * Overflow: the int32 sums wrap modulo 2^32 where they pass 2^31
+//    (255^2 * K does from K = 33,026: nemotron-4-340b's w_down has K =
+//    73,728), as the reference's int32 accumulation does; the plain
+//    version wraps alike.
 //  * A biased table (U16, asym_u8 only: the unsigned 'initial', whose D in
 //    [-48744, 0] needs 17 bits as int16) holds T = D + bias as uint16
-//    (ops.narrow_delta).  The sums of T are exact (6144 * (255^2 + 48744)
-//    < 2^31), and the epilogue subtracts K * bias once from each output,
-//    on both schedules, before acc_out and the dequant see it.
+//    (ops.narrow_delta).  The sums of T are exact modulo 2^32, and the
+//    epilogue subtracts K * bias (modulo 2^32) once from each output, on
+//    both schedules, before acc_out and the dequant see it.
 //  * Ragged edges are masked (k stops at K), so no K-padding correction.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -131,7 +138,7 @@ quantize_rows(const float* __restrict__ x, const float* __restrict__ scal,
               long long nzero, int K, int kp) {
   __shared__ float MU[256];
   __shared__ int wrs[kQThreads / 32];
-  __shared__ float wrc[kQThreads / 32];
+  __shared__ double wrc[kQThreads / 32];
   constexpr int off = ASYM ? 0 : 128;
   constexpr float lo = ASYM ? 0.0f : -128.0f;
   constexpr float hi = ASYM ? 255.0f : 127.0f;
@@ -144,7 +151,7 @@ quantize_rows(const float* __restrict__ x, const float* __restrict__ scal,
   __syncthreads();
   const float sx = scal[0], zx = scal[1];
   int rs = 0;
-  float rc = 0.f;
+  double rc = 0.0;
   for (int k = tid; k < kp; k += kQThreads) {
     int q = 0;
     if (k < K) {
@@ -153,13 +160,13 @@ quantize_rows(const float* __restrict__ x, const float* __restrict__ scal,
       q = (int)fminf(fmaxf(v, lo), hi);
       if (qx_out != nullptr) qx_out[(size_t)m * K + k] = q;
       rs += q;
-      if (COMP) rc = __fadd_rn(rc, MU[q + off]);
+      if (COMP) rc = __dadd_rn(rc, (double)MU[q + off]);
     }
     qb[(size_t)m * kp + k] = (uint8_t)(q & 255);
   }
   for (int o = 16; o > 0; o >>= 1) {
     rs += __shfl_xor_sync(0xffffffffu, rs, o);
-    if (COMP) rc = __fadd_rn(rc, __shfl_xor_sync(0xffffffffu, rc, o));
+    if (COMP) rc = __dadd_rn(rc, __shfl_xor_sync(0xffffffffu, rc, o));
   }
   if (tid % 32 == 0) {
     wrs[tid / 32] = rs;
@@ -168,13 +175,13 @@ quantize_rows(const float* __restrict__ x, const float* __restrict__ scal,
   __syncthreads();
   if (tid == 0) {
     int s = 0;
-    float c = 0.f;
+    double c = 0.0;
     for (int w = 0; w < kQThreads / 32; ++w) {
       s += wrs[w];
-      if (COMP) c = __fadd_rn(c, wrc[w]);
+      if (COMP) c = __dadd_rn(c, wrc[w]);
     }
     rsum[m] = s;
-    rcomp[m] = c;
+    rcomp[m] = __double2float_rn(c);
   }
 }
 

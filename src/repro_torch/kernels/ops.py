@@ -605,9 +605,14 @@ def attention_chunks(S_max: int, B: int, Kv: int, sms: int = ATTN_SMS):
     positions, one block per (chunk, kv head, slot) and one cluster of
     ``chunks`` blocks per (kv head, slot).  As many chunks as keep the
     B*Kv pairs' blocks within ATTN_BLOCKS_PER_SM per SM (so that they run
-    in one wave), but none under ATTN_MIN_ROWS positions and at most
-    ATTN_MAX_CHUNKS; the last chunk is never empty.  So the blocks number
-    at most max(B*Kv, ATTN_BLOCKS_PER_SM*sms)."""
+    in one wave where the instantiation fits that many: groups of 1-8),
+    but none under ATTN_MIN_ROWS positions and at most ATTN_MAX_CHUNKS;
+    the last chunk is never empty.  So the blocks number at most
+    max(B*Kv, ATTN_BLOCKS_PER_SM*sms).  The G = 16 instantiation (groups
+    of 9-16) fits 2 blocks an SM, so at many pairs its blocks take two
+    waves; a split planned at 2 an SM, one wave, measured slower at
+    nemotron-4-340b's 96/8 over 4,096 positions (0.559 ms against 0.486
+    on an H100 80GB HBM3 at 700 W: scripts/time_ab.py)."""
     pairs = B * Kv
     n = max(1, min(ATTN_MAX_CHUNKS, S_max // ATTN_MIN_ROWS,
                    ATTN_BLOCKS_PER_SM * sms // pairs))
@@ -633,12 +638,14 @@ def _rope_table(theta: float, hd: int, device) -> torch.Tensor:
     return _ATTN_CACHE[key]
 
 
-def _attention_launch(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
-                      pos, theta, window, row_out):
-    """Check the operands and launch the decode_attention kernel; returns
-    out (B, H, hd) f32.  ``row_out`` None: the new k/v rows go into the
-    caches at pos (the append); else a pair of (B, Kv, hd) bf16 row
-    outputs, and the caches are only read."""
+ATTN_MAX_GROUP = 16        # query heads a kv head, the kernel's largest G
+
+
+def _check_attention_shapes(q, k_new, v_new, q_gain, k_gain, k_cache,
+                            v_cache, pos):
+    """The decode_attention kernel's operand checks (shapes, dtypes,
+    head_dim, the query group H/Kv <= ATTN_MAX_GROUP), any device.
+    Returns the gains to pass, () without qk-norm."""
     name = "decode_attention"
     # plain ifs: a message is formatted only when a check fails (28 calls
     # a decode step and a calibration token, each a few-µs kernel)
@@ -651,9 +658,9 @@ def _attention_launch(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
         raise ValueError(f"{name}: caches must be ({B}, S_max, {Kv}, {hd})")
     if not (hd % 2 == 0 and 0 < hd <= 256):
         raise ValueError(f"{name}: head_dim {hd} must be even and <= 256")
-    if not (Kv > 0 and H % Kv == 0 and H // Kv <= 8):
+    if not (Kv > 0 and H % Kv == 0 and H // Kv <= ATTN_MAX_GROUP):
         raise ValueError(f"{name}: query group H/Kv = {H}/{Kv} must be a "
-                         f"whole number <= 8")
+                         f"whole number <= {ATTN_MAX_GROUP}")
     for t in (q, k_new, v_new):
         if not (t.dtype == torch.float32 and t.stride(2) == 1
                 and t.stride(1) == hd):
@@ -663,11 +670,26 @@ def _attention_launch(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
         raise ValueError(f"{name}: the caches must be bfloat16")
     if not (pos.dtype == torch.int32 and pos.numel() in (1, B)):
         raise ValueError(f"{name}: pos must be int32, scalar or ({B},)")
-    qk_norm = q_gain is not None
-    gains = (q_gain, k_gain) if qk_norm else ()
+    gains = (q_gain, k_gain) if q_gain is not None else ()
     for g in gains:
         if not (g.dtype == torch.float32 and g.numel() == hd):
             raise ValueError(f"{name}: gains must be float32 ({hd},)")
+    return gains
+
+
+def _attention_launch(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
+                      pos, theta, window, row_out):
+    """Check the operands and launch the decode_attention kernel; returns
+    out (B, H, hd) f32.  ``row_out`` None: the new k/v rows go into the
+    caches at pos (the append); else a pair of (B, Kv, hd) bf16 row
+    outputs, and the caches are only read."""
+    name = "decode_attention"
+    gains = _check_attention_shapes(q, k_new, v_new, q_gain, k_gain,
+                                    k_cache, v_cache, pos)
+    qk_norm = bool(gains)
+    B, H, hd = q.shape
+    Kv = k_new.shape[1]
+    S = k_cache.shape[1]
     _check_cuda(name, k_cache, v_cache, pos, *gains)
     dev = k_cache.device
     for t in (q, k_new, v_new):

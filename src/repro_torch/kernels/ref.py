@@ -29,10 +29,15 @@ def _pick_k_block(K: int, k_block: int) -> int:
 
 
 def exact_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact integer matmul (int32 out).  CUDA has no integer matmul;
-    float64 is exact there, since |sum| <= K * 255**2 is far below 2**53."""
+    """Exact integer matmul, int32 out modulo 2^32 (the reference's int32
+    accumulation wraps where a sum passes 2^31: 255 * 255 * K does from K
+    = 33,026, nemotron's w_down has K = 73,728).  CUDA has no integer
+    matmul; float64 is exact there, since |sum| <= K * 255**2 is far
+    below 2**53, and goes through int64 so that the narrowing wraps
+    (a float64 beyond int32 would saturate)."""
     if a.is_cuda:
-        return torch.matmul(a.double(), b.double()).to(torch.int32)
+        return torch.matmul(a.double(), b.double()).to(torch.int64).to(
+            torch.int32)
     return torch.matmul(a.long(), b.long()).to(torch.int32)
 
 
@@ -187,8 +192,10 @@ def fused_qdot_ref(x, qw, dlut, scal, ntab, comp_r, offset: int = 0,
     x: (M, K) float; qw: (K, N) prequantized weights; dlut: (256, 256)
     delta table; scal: (>=3,) f32 [sx, zx, comp_mu, ...]; ntab: (4, N)
     f32 rows [sw, zw, colsum, comp_col]; comp_r: (256,) f32.  Every
-    float epilogue op keeps the reference's order.  ``return_int`` also
-    returns the quantized activations and the int32 accumulator.
+    float epilogue op keeps the reference's order; the compensation row
+    sum is taken in float64 and rounded once (the reference's is a
+    float32 sum in XLA's order, a few ulps from it).  ``return_int``
+    also returns the quantized activations and the int32 accumulator.
     """
     sx, zx = scal[0], scal[1]
     qx = quantize_static(x, sx, zx, asym)
@@ -204,7 +211,11 @@ def fused_qdot_ref(x, qw, dlut, scal, ntab, comp_r, offset: int = 0,
     accf = prod.float()
     sw = ntab[0][None, :]
     if compensate:
-        rowc = comp_r[(qx + offset).long()].sum(-1, keepdim=True)
+        # summed in float64 and rounded once, as the kernel's pre-pass
+        # does: the float32 sum's order decided an ulp of it, which the
+        # asym epilogue's cancellation amplifies at large K
+        rowc = comp_r.double()[(qx + offset).long()].sum(
+            -1, keepdim=True).float()
         accf = accf - (rowc + ntab[3][None, :] - K * scal[2])
     if asym:
         zw = ntab[1][None, :]

@@ -5,12 +5,15 @@ per-slot cache positions.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 4 --prompt-len 64 --gen-len 16 --calibrate 1
 
---arch takes the dense qwen3-1.7b and the MoE mixtral-8x7b and
-llama4-scout-17b-a16e (the same path: the experts' projections are
-qdots of their own, one per expert).  Under --continuous an MoE
-request's ids can depend on its batch: an expert's capacity is shared
-by the tokens of a forward, so a token dropped in a full batch may be
-kept alone (the reference's too).
+--arch takes every decoder-only config of the reference (configs.ARCHS):
+the dense qwen3-1.7b, gemma-7b, minitron-8b and nemotron-4-340b, the
+MoE mixtral-8x7b and llama4-scout-17b-a16e (the experts' projections
+are qdots of their own, one per expert), the hybrid recurrentgemma-2b
+(RG-LRU blocks and local attention) and the ssm xlstm-125m (mLSTM and
+sLSTM blocks; its mLSTM keeps wq/wk/wv unmerged, quant.fuse_projections
+says why).  Under --continuous an MoE request's ids can depend on its
+batch: an expert's capacity is shared by the tokens of a forward, so a
+token dropped in a full batch may be kept alone (the reference's too).
 
 Quantization precomputation ladder (quant/linear.py):
   --prequantize      cache weight quantization once (q/scale/zp/colsum)
@@ -243,8 +246,9 @@ def prepare(args, table=None, cfg=None) -> Prepared:
 
 def _scatter_slot(state, one, slot: int) -> None:
     """Write a freshly prefilled single-slot state into the batched
-    ``state`` at ``slot``, in place (every cache leaf is stacked
-    (n_units, B, ...): k, v and the per-slot idx)."""
+    ``state`` at ``slot``, in place.  Every leaf is stacked (n_units, B,
+    ...): an attention cache's k, v and per-slot idx, a recurrent
+    state's h and conv, C, n and m, or c, n and m."""
     for c_full, c_one in zip(state["caches"], one["caches"]):
         for k, full in c_full.items():
             full[:, slot] = c_one[k][:, 0]

@@ -187,15 +187,28 @@ def _silu(x):
     return x * torch.sigmoid(x)      # jax.nn.silu's form
 
 
+def gelu(x):
+    """jax.nn.gelu's default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp(p, x, qcfg: QuantConfig, kind: str):
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp kind {kind!r} is not ported yet")
-    if "w_gateup" in p:
+    """The MLP kinds of the reference: swiglu and geglu (gate and up
+    projections, merged into w_gateup by quant.fuse_projections), relu2
+    (nemotron's squared ReLU) and gelu (w_up and w_down only)."""
+    if kind in ("geglu", "swiglu") and "w_gateup" in p:
         # merged gate|up projection (quant.fuse_projections)
+        act = gelu if kind == "geglu" else _silu
         g, u = torch.chunk(qdot(x, p["w_gateup"], qcfg), 2, -1)
-        h = _silu(g) * u
-    else:
+        h = act(g) * u
+    elif kind == "geglu":
+        h = gelu(qdot(x, p["w_gate"], qcfg)) * qdot(x, p["w_up"], qcfg)
+    elif kind == "swiglu":
         h = _silu(qdot(x, p["w_gate"], qcfg)) * qdot(x, p["w_up"], qcfg)
+    elif kind == "relu2":
+        h = torch.square(torch.relu(qdot(x, p["w_up"], qcfg)))
+    else:
+        h = gelu(qdot(x, p["w_up"], qcfg))
     return qdot(h, p["w_down"], qcfg)
 
 

@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve
 from ..quant import QuantConfig, qdot
 from ..quant.linear import QuantizedWeight, get_observer
 from . import layers
@@ -24,13 +25,15 @@ from . import layers
 
 def moe_init(generator: torch.Generator, n_layers: int, d_model: int,
              d_ff: int, n_experts: int, kind: str, shared_ff: int = 0,
-             device="cpu"):
+             device="cuda"):
     """Random MoE params stacked over ``n_layers``, with the reference's
     shapes and init scales: router (L, D, E) N(0, 0.02^2), experts
     w_gate/w_up (L, E, D, F) N(0, 1/D) and w_down (L, E, F, D) N(0, 1/F)
     (w_gate for the GLU kinds only), the shared expert a dense MLP of
     width ``shared_ff`` (N(0, 1/in_dim) kernels).  Drawn on
-    ``generator``'s device, then moved to ``device``."""
+    ``generator``'s device, then moved to ``device`` (the card unless
+    asked otherwise, as every entry point: device.resolve)."""
+    device = resolve(device)
     gdev = generator.device
     L, D, E = n_layers, d_model, n_experts
 
@@ -125,10 +128,7 @@ def combine(ye: torch.Tensor, table: torch.Tensor, gate_idx: torch.Tensor,
 
 
 def _act(kind: str):
-    if kind == "swiglu":
-        return layers._silu
-    # jax.nn.gelu's default is the tanh approximation
-    return lambda v: F.gelu(v, approximate="tanh")
+    return layers._silu if kind == "swiglu" else layers.gelu
 
 
 def moe(p, x, qcfg: QuantConfig, *, n_experts: int, top_k: int, kind: str,

@@ -558,13 +558,20 @@ def fuse_projections(params):
     wq|wk|wv -> wqkv and mlp w_gate|w_up -> w_gateup, concatenated along
     the output axis (7 qdot calls per layer become 4).  Groups that are
     not safely mergeable are left untouched (among them plan layers
-    whose members gather different tables).  Apply after prequantize ->
-    calibrate -> plan -> comp cols (launch.serve does, unless
-    --no-fuse-proj)."""
+    whose members gather different tables), and so are the MoE dicts'
+    expert stacks and the mLSTM block's wq|wk|wv.  The reference merges
+    the latter too (its merge takes any dict with wq, wk and wv), and its
+    mLSTM then reads a wq that is gone (KeyError: 'wq'), so a fused
+    xlstm serve of the reference fails; here the block keeps its three
+    projections, and a fused serve equals the reference's
+    --no-fuse-proj serve.  Apply after prequantize -> calibrate -> plan
+    -> comp cols (launch.serve does, unless --no-fuse-proj)."""
     def visit(node):
         if isinstance(node, dict):
             node = {k: visit(v) for k, v in node.items()}
-            if "router" in node:
+            if "router" in node:          # MoE dict: expert stacks stay
+                return node
+            if "wi" in node and "wf" in node:   # an mLSTM (or sLSTM) block
                 return node
             if all(k in node for k in ("wq", "wk", "wv")):
                 m = _merge_group([node["wq"], node["wk"], node["wv"]],

@@ -808,3 +808,105 @@ def test_smoke_quant_unembed_matches_cpu_launch_by_launch(cuda):
     # 7 projections x layers + the head, per forward, 3 forwards
     assert sh.stats["delta_matmul"]["calls"] == 3 * (7 * cfg.n_layers + 1)
     assert torch.isfinite(lg).all()
+
+
+# ---------------------------------------------------------------------------
+# the remaining decoder families: query groups above 8, head_dim 192 and
+# 256, Kv = 1 with a window, and the int32 range of K = 73,728
+# ---------------------------------------------------------------------------
+
+# (B, S, H, Kv, hd, window, positions): nemotron-4-340b (96/8, hd 192),
+# recurrentgemma-2b (10/1, hd 256, window 2048, positions past it),
+# gemma-7b (16/16, hd 256) and a group of 16 at hd 256, whose shared
+# memory takes the opt-in attribute
+LARGE_GROUPS = [(4, 80, 96, 8, 192, None, [64, 70, 75, 79]),
+                (4, 80, 10, 1, 256, 2048, [64, 70, 75, 79]),
+                (4, 2600, 10, 1, 256, 2048, [2047, 2048, 2300, 2599]),
+                (2, 4096, 96, 8, 192, None, [1, 4095]),
+                (4, 80, 16, 16, 256, None, [0, 33, 65, 79]),
+                (2, 300, 16, 1, 256, None, [299, 150])]
+
+
+@pytest.mark.parametrize("B,S,H,Kv,hd,window,pos", LARGE_GROUPS)
+def test_attention_kernel_at_large_groups(cuda, B, S, H, Kv, hd, window,
+                                          pos):
+    """decode_attention at query groups of 10, 12 and 16 (the G = 16
+    instantiation) and gemma's 16/16, head_dim 192 and 256, qk-norm off as
+    the configs have it: every head within ATTN_TOL of the plain version,
+    two launches bit-equal, and the append in place."""
+    case = check.attention_case(B, S, H, Kv, hd, H + S, cuda, qk_norm=False,
+                                window=window, pos=pos)
+    check.check_attention(case)
+    check.check_attention_append(case)
+
+
+def test_attention_kernel_at_chunk_edges_with_one_kv_head(cuda):
+    """recurrentgemma-2b's 10/1 at head_dim 256 under its window of 2048,
+    at every chunk and tile edge of a 4096-position cache."""
+    H, Kv, hd, S, B = 10, 1, 256, 4096, 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edges = check.attention_edge_positions(S, B, Kv, hd, sms)
+    for i in range(0, len(edges), B):
+        pos = (edges[i:i + B] + [S - 1] * B)[:B]
+        check.check_attention(check.attention_case(
+            B, S, H, Kv, hd, i, cuda, qk_norm=False, window=2048, pos=pos))
+
+
+def test_smoke_recurrentgemma_decodes_past_its_window(cuda):
+    """recurrentgemma-2b at smoke size with the config's own window of
+    2048, a 2100-token prompt and 3 decode steps: the local attention's
+    decode launches read positions past the window, each launch held
+    against its plain version on the CPU (prequantized, the 'delta'
+    backend: delta_matmul and decode_attention)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    argv = ["--arch", "recurrentgemma-2b", "--smoke", "--requests", "1",
+            "--prompt-len", "2100", "--gen-len", "4", "--prequantize",
+            "--backend", "delta"]
+    args = serve.build_parser().parse_args(argv)
+    cfg = dataclasses.replace(configs.get_smoke("recurrentgemma-2b"),
+                              window=2048, max_seq=4096)
+    with check.CpuShadow(check.CpuShadow.serving("delta")) as sh:
+        r = serve.run(args, serve.prepare(args, cfg=cfg))
+    assert sh.stats["decode_attention"]["calls"] > 0
+    assert r.out.shape == (1, 4)
+
+
+@pytest.mark.parametrize("M", [2, 4, 5, 17])
+@pytest.mark.parametrize("design", ["design2", "initial"])
+def test_delta_kernel_wraps_past_int32_at_k_73728(cuda, M, design):
+    """delta_matmul at nemotron's w_down depth on operands whose exact
+    product passes 2^31: the kernel's int32 words equal the plain
+    version's on the card and on the CPU (split-K at M <= 4, tiles
+    above), wrapped modulo 2^32 as the reference's."""
+    r = check.check_range(check.range_delta_case(M, 24, M, cuda, design),
+                          "delta_matmul")
+    assert r["past_2_31"] > 0
+
+
+@pytest.mark.parametrize("M", [2, 5])
+@pytest.mark.parametrize("compensate", [False, True])
+def test_fused_kernel_wraps_past_int32_at_k_73728(cuda, M, compensate):
+    r = check.check_range(check.range_fused_case(M, 24, M, cuda,
+                                                 compensate=compensate),
+                          "fused_qdot")
+    assert r["past_2_31"] > 0
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "minitron-8b",
+                                  "nemotron-4-340b", "recurrentgemma-2b",
+                                  "xlstm-125m"])
+def test_smoke_new_families_serve_matches_cpu_launch_by_launch(cuda, arch):
+    """serve --calibrate 1 of each new config at smoke size on the card:
+    every launch held against its plain version on the CPU."""
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--smoke", "--requests", "2", "--prompt-len",
+            "4", "--gen-len", "4", "--calibrate", "1"]
+    with check.CpuShadow() as sh:
+        r = serve.run(serve.build_parser().parse_args(argv))
+    assert sh.stats["fused_qdot_packed"]["calls"] > 0
+    assert sh.stats["delta_matmul"]["calls"] > 0
+    assert (sh.stats["decode_attention"]["calls"] > 0) == (
+        arch != "xlstm-125m")
+    assert r.out.shape == (2, 4)

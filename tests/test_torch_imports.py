@@ -26,7 +26,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert "repro_torch.train.optimizer" in mods
     for m in ("calib.plan", "calib.__main__", "core.cost",
               "signed.recompose", "models.moe", "configs.mixtral_8x7b",
-              "configs.llama4_scout_17b_a16e"):
+              "configs.llama4_scout_17b_a16e", "models.recurrent",
+              "configs.gemma_7b", "configs.minitron_8b",
+              "configs.nemotron_4_340b", "configs.recurrentgemma_2b",
+              "configs.xlstm_125m"):
         assert "repro_torch." + m in mods
     code = (
         "import importlib, json, sys\n"

@@ -25,7 +25,7 @@ Tolerances, and why (gaps measured on these sizes and inputs):
   * The non-GLU (gelu) and GLU-gelu (geglu) experts through moe() as
     above, on a replaced smoke config without a shared expert.
   * param_count / active_param_count equal to the reference's for every
-    config the port has.
+    config the port has (the dense and recurrent families' too).
 """
 import dataclasses
 
@@ -169,8 +169,14 @@ def test_params_carry_across_with_the_moe_tree(bases):
         interop.params_from_numpy(bad, cfg_t, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["qwen3-1.7b"] + ARCHS)
+@pytest.mark.parametrize("name", ["qwen3-1.7b"] + ARCHS + [
+    "gemma-7b", "minitron-8b", "nemotron-4-340b", "recurrentgemma-2b",
+    "xlstm-125m"])
 def test_param_counts_match_reference(name):
+    """Every ported config's CONFIG and SMOKE as the reference has them,
+    listed in configs.ARCHS, with the reference's parameter counts (the
+    rec / mlstm / slstm terms included)."""
+    assert tconfigs.canon(name) in tconfigs.ARCHS
     for get in ("get", "get_smoke"):
         t, r = getattr(tconfigs, get)(name), getattr(rconfigs, get)(name)
         assert dataclasses.asdict(t) == dataclasses.asdict(r)
