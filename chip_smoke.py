@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and design-plan paths,
-the options of launch.serve, the MoE family and the other decoder-only
-families, on one NVIDIA card and check them.
+the options of launch.serve, the MoE family, the other decoder-only
+families, the encoder-decoder and the VLM, on one NVIDIA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -41,13 +42,20 @@ error and carries on:
                decode_attention at 96/8 hd 192, 10/1 hd 256 under the
                window of 2048 (positions past it, the chunk edges),
                16/16 hd 256 and a group of 16 at hd 256 (shared memory
-               above 48 KiB)
+               above 48 KiB); phase 15's shapes: fused_qdot at whisper's
+               serve projections (K = 768 / 3,072, M = 4, 64, 256 and
+               6,000) and delta_matmul at its calibration ones (M = 4
+               and 64), both modes, decode_attention at 12/12 hd 64 (the
+               serve and calibration positions, the chunk edges of 448),
+               lut_matmul at internvl2's merged projections (M = 4 both
+               modes, 256 asym_u8) and its prefix (M = 512, K = 3,200)
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
                no plain version may see a CUDA tensor (the asym_u8 run's
                calibration table is kept for phase 12)
-  5. parity    the serving path at 2 layers of full width, same weights,
+  5. parity    the serving path at 1 layer of full width (PARITY_LAYERS),
+               same weights,
                table and prompts: every kernel launch of the card's run
                held against its plain version on the CPU from the same
                inputs (the attention's appended rows read from the card's
@@ -55,14 +63,15 @@ error and carries on:
                call); the free-running CPU run reported beside it; and
                --design initial asym_u8 uncalibrated ('delta') and
                calibrated ('fused'), held launch by launch
-  6. train     full-width qwen3-1.7b QAT through repro_torch.launch.train,
-               --batch 4 --seq 128 (M=512 rows per projection), remat on,
-               2 steps each of --backend xla and residual in asym_u8 and
+  6. train     full-width qwen3-1.7b QAT through repro_torch.launch.train
+               at 14 of its 28 layers (TRAIN_LAYERS), --batch 4 --seq 128
+               (M=512 rows per projection), remat on, 2 steps each of
+               --backend xla and residual in asym_u8 and
                sym_i8 (one run with --compress-grads, one with
                --microbatches 2); launch counts must match the path; the
-               residual sym_i8 run saves its full-width state through
+               residual sym_i8 run saves its state through
                --ckpt-dir, which restores to tensors equal to it
-  7. train parity  one train step at 2 layers of full width on the card
+  7. train parity  one train step at 1 layer of full width on the card
                and on the CPU: every lut_matmul / residual_matmul launch
                held against its plain version on the CPU; the free-running
                loss and gradient gaps reported
@@ -86,9 +95,12 @@ error and carries on:
                families' (``families``, per config: every distinct serve
                projection at M = 4 and 256, every calibration
                projection, the attention at the serve path's position
-               and at 4095 of 4096); every case of these phase-12, -13
-               and -14 shapes is held against its plain version on the
-               card before it is timed
+               and at 4095 of 4096), and phase 15's (``encdec_vlm``:
+               whisper's fused_qdot, delta_matmul and decode_attention
+               cases, internvl2's lut_matmul at M = 4, 256 and the
+               prefix's 512); every case of these phase-12 to -15 shapes
+               is held against its plain version on the card before it is
+               timed
   9. trace     torch.profiler over full-width decode steps of the serve
                path: kernel launches per step by name, the device's busy
                share of the traced window, host-side op counts
@@ -117,17 +129,18 @@ error and carries on:
                apart as ``serve`` in the JSON); (d) the quantized
                unembed (one delta_matmul of N = 151,936 a forward) on
                (a)'s tree; launch counts read after each run; then (a)-(d)
-               at 2 layers of full width with every launch held against
+               at 1 layer of full width with every launch held against
                its plain version on the CPU (the unembed's prefill launch
                against its plain version on the card)
- 13. MoE       mixtral-8x7b at 4 of 32 layers and llama4-scout-17b-a16e at
-               2 of 48, every width as published (the float32 master
-               weights of more layers do not fit beside their int8
-               copies): serve's prepare and run, --calibrate 1, 4
-               requests, prompt 64, gen 16, asym_u8 and sym_i8; launch
-               counts held to the path's (a decode step 108 fused_qdot + 4
-               decode_attention and 106 + 2, a calibration token 116 and
-               112 delta_matmul, as many calibration sites); then one
+ 13. MoE       mixtral-8x7b and llama4-scout-17b-a16e at 2 of 32 and 2 of
+               48 layers, every width as published (the float32 master
+               weights of more than 4 and 2 layers do not fit beside
+               their int8 copies; mixtral runs 2 for time): serve's
+               prepare and run, --calibrate 1, 4 requests, prompt 64, gen
+               16, asym_u8 and sym_i8; launch counts held to the path's
+               (a decode step 54 fused_qdot + 2 decode_attention and 106
+               + 2, a calibration token 58 and 112 delta_matmul, as many
+               calibration sites); then one
                layer of each at full width served calibrated in both
                modes with every launch held against its plain version
                (CpuShadow: the routers, wk/wv and attention on the CPU,
@@ -142,6 +155,22 @@ error and carries on:
                path's (family_per_model); then one pattern unit of each
                (1 layer dense, 3 recurrent) served calibrated in both
                modes with every launch held against its plain version
+ 15. encoder-decoder and VLM  (a) whisper-small whole (12 + 12 layers)
+               through serve's prepare and run, --calibrate 1, 4
+               requests, prompt 64, gen 16, both modes, launch counts
+               held to the path's (encdec_per_model: 96 fused_qdot + 12
+               decode_attention a decode step, 72 fused_qdot an encoder
+               pass, 120 delta_matmul a calibration token and 72 a
+               calibration batch's encoder); (b) the same over the
+               config's 1,500 encoder frames, asym_u8, on (a)'s table
+               (the encoder and each forward's cross k/v at M = 6,000);
+               (c) internvl2-76b at 4 of 80 layers, every width as
+               published, --prequantize (16 lut_matmul + 4
+               decode_attention a step), both modes; (d) one encoder
+               layer, one decoder layer and its cross block of whisper
+               served calibrated in both modes, and one layer of
+               internvl2's forward_train with its 256-patch prefix
+               (asym_u8), every launch held against its plain version
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -169,13 +198,21 @@ TRAIN_RUNS = [("xla", "asym_u8", ["--compress-grads"]),
               ("residual", "asym_u8", []),
               ("residual", "sym_i8", [])]
 CKPT_RUN = ("residual", "sym_i8")          # saves its state: --ckpt-dir
+# depth cuts that keep the script inside its time limit: phase 6 trains
+# TRAIN_LAYERS of qwen3's 28 layers (every shape of the path; the
+# checkpoint round trip of the full depth took 80 s of its 107), phases 5,
+# 7 and 12 hold PARITY_LAYERS layers launch by launch (phase 11 keeps 2:
+# its plan differs between odd and even layers)
+TRAIN_LAYERS = 14
+PARITY_LAYERS = 1
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 RANK = 32                        # QuantConfig.rank, the launcher's default
 # the MoE family (phase 13): every width of the reference's CONFIG, the
 # depth cut so that the float32 master weights fit the card beside their
 # int8 copies (mixtral 5.8 GB a layer, scout 8.8 GB a layer and a 4.1 GB
-# embedding); one layer is the pattern's whole period ("moe",)
-MOE_RUNS = (("mixtral-8x7b", 4), ("llama4-scout-17b-a16e", 2))
+# embedding; mixtral fits 4, and runs 2 for time); one layer is the
+# pattern's whole period ("moe",)
+MOE_RUNS = (("mixtral-8x7b", 2), ("llama4-scout-17b-a16e", 2))
 # phase 13's parity: a launch of more gathers than this is held against
 # its plain version on the card, not on the CPU (the experts, the merged
 # attention and the shared expert at full width)
@@ -714,9 +751,11 @@ def serve_full_width(cfg):
     return totals, table
 
 
-def _serve_once(cfg, params, q, table, cal, prompts, gen, dev, plan=None):
+def _serve_once(cfg, params, q, table, cal, prompts, gen, dev, plan=None,
+                cal_frames=None, frames=None):
     """prequantize -> (calibrate, on the fused backend) -> (plan) ->
-    install -> prefill -> greedy decode."""
+    install -> (encdec: the encoder over ``frames``) -> prefill -> greedy
+    decode.  ``cal_frames``: an encdec model's calibration frames."""
     import torch
     from repro_torch import calib
     from repro_torch.models import transformer as T
@@ -727,12 +766,17 @@ def _serve_once(cfg, params, q, table, cal, prompts, gen, dev, plan=None):
     if q.backend == "fused":
         if table is None:
             table = calib.calibrate_decode(tree, cfg, q, cal, gen_len=2,
-                                           device=dev)
+                                           device=dev,
+                                           enc_frontend=cal_frames)
         tree = calib.apply_calibration(tree, table)
     if plan is not None:
         tree = calib.apply_plan(tree, plan, q)
     tree = fuse_projections(calib.attach_comp_cols(tree, q))
-    st = T.init_decode_state(cfg, b, p + gen, device=dev)
+    enc_out = None
+    if frames is not None:
+        enc_out = T._run_encoder(tree, torch.as_tensor(frames, device=dev),
+                                 cfg, q)
+    st = T.init_decode_state(cfg, b, p + gen, device=dev, enc_out=enc_out)
     tok, lg, st = make_prefill_step(cfg, q)(
         tree, st, torch.as_tensor(prompts, device=dev))
     toks, lgs = [tok], [lg]
@@ -779,14 +823,14 @@ def _shadow_log(tag, sh, t0):
 
 
 def parity_initial(cfg_full):
-    """serve --design initial --quant-mode asym_u8 at 2 layers of full
-    width, uncalibrated ('delta': every projection a delta_matmul launch
+    """serve --design initial --quant-mode asym_u8 at PARITY_LAYERS of
+    full width, uncalibrated ('delta': every projection a delta_matmul launch
     on the biased table) and calibrated ('fused'), every launch held
     against its plain version on the CPU."""
     import numpy as np
     from repro_torch.kernels import check
     from repro_torch.quant import QuantConfig
-    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    cfg = dataclasses.replace(cfg_full, n_layers=PARITY_LAYERS)
     _, params_gpu = _card_params(cfg, 1)
     rng = np.random.default_rng(4)
     cal = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
@@ -804,8 +848,9 @@ def parity_initial(cfg_full):
         log(f"[parity] initial asym_u8 {backend}: card ids {ids.tolist()}")
 
 
-def parity_two_layers(cfg_full):
-    """Full width, depth 2, the same weights, calibration table and
+def slice_parity(cfg_full):
+    """Full width, depth PARITY_LAYERS, the same weights, calibration
+    table and
     prompts.  Asserted: every kernel launch of the card's run equals its
     plain version run on the CPU from the same inputs (CpuShadow).
     Reported: the free-running card run against the free-running CPU run
@@ -819,7 +864,7 @@ def parity_two_layers(cfg_full):
     import torch
     from repro_torch.kernels import check
     from repro_torch.quant import QuantConfig
-    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    cfg = dataclasses.replace(cfg_full, n_layers=PARITY_LAYERS)
     b, p, g = 2, 8, 4
     torch.set_num_threads(os.cpu_count() or 1)
     params_cpu, params_gpu = _card_params(cfg, 1)
@@ -848,12 +893,14 @@ def parity_two_layers(cfg_full):
 
 
 def train_full_width(cfg):
-    """The training path at full width through the launcher, one run per
-    (backend, mode); returns the launches of the two training kernels."""
+    """The training path at full width and TRAIN_LAYERS of depth through
+    the launcher, one run per (backend, mode); returns the launches of the
+    two training kernels."""
     import math
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
     L = cfg.n_layers
     totals = {"lut_matmul": 0, "residual_matmul": 0}
     rows = {}
@@ -873,7 +920,7 @@ def train_full_width(cfg):
         want[kernel] = 7 * L * 2 * mb * TSTEPS
         with PlainGuard():
             ops.reset_launches()
-            r = train.run(train.parse_args(argv))
+            r = train.run(train.parse_args(argv), cfg=cfg)
             counts = dict(ops.LAUNCHES)
         tag = f"{backend} {mode} {' '.join(extra)}".strip()
         log(f"[train] {tag}: losses {r.losses}, grad norms {r.grad_norms}")
@@ -926,8 +973,8 @@ def checkpoint_round_trip(r):
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
-def train_parity_two_layers(cfg_full):
-    """One train step at 2 layers of full width, the same weights and
+def train_parity(cfg_full):
+    """One train step at PARITY_LAYERS of full width, the same weights and
     batch, on the card and on the CPU.  Asserted: every lut_matmul /
     residual_matmul launch of the card's step equals its plain version on
     the CPU from the same inputs (CpuShadow), with the path's launch
@@ -941,7 +988,7 @@ def train_parity_two_layers(cfg_full):
     from repro_torch.quant import QuantConfig
     from repro_torch.train import OptConfig, make_train_step
     from repro_torch.train import optimizer as opt_mod
-    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    cfg = dataclasses.replace(cfg_full, n_layers=PARITY_LAYERS)
     torch.set_num_threads(os.cpu_count() or 1)
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab, (1, 17)).astype(np.int64)
@@ -1132,8 +1179,8 @@ def plan_parity_two_layers(cfg_full):
     cfg = dataclasses.replace(cfg_full, n_layers=2)
     _, params_gpu = _card_params(cfg, 2)
     rng = np.random.default_rng(6)
-    cal = rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)
-    prompts = rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)
+    cal = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
     batches = [configs.make_smoke_batch(cfg, 2, 16, seed=i) for i in (0, 1)]
     plans = {}
     for mode in ("asym_u8", "sym_i8"):
@@ -1465,7 +1512,8 @@ def serve_options_runs(cfg, rows):
 
 
 def serve_options_parity(cfg_full):
-    """Phase 12 at 2 layers of full width, every launch of the card's run
+    """Phase 12 at PARITY_LAYERS of full width, every launch of the card's
+    run
     held against its plain version on the CPU (CpuShadow): (a)
     --continuous 3 over 2 slots, calibrated, asym_u8; (d) the quantized
     unembed on (a)'s tree, its prefill launch (M*K*N above 2^30 gathers)
@@ -1478,7 +1526,7 @@ def serve_options_parity(cfg_full):
     from repro_torch.models import transformer as T
     from repro_torch.quant import QuantConfig
     from repro_torch.train import make_prefill_step, make_serve_step
-    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    cfg = dataclasses.replace(cfg_full, n_layers=PARITY_LAYERS)
     torch.set_num_threads(os.cpu_count() or 1)
     _, params_gpu = _card_params(cfg, 7)
     b, p, g = 2, 4, 3
@@ -2001,6 +2049,456 @@ def time_family_kernels(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the encoder-decoder whisper-small and the VLM internvl2-76b
+# ---------------------------------------------------------------------------
+
+def encdec_shapes(cfg):
+    """A whisper layer's projections, each a list of (name, K, N), one
+    entry a projection call: (calibration a decoder layer, serve a
+    decoder layer, the encoder a layer).  Calibration runs the decoder's
+    projections unmerged and the cross block's four; serving merges the
+    decoder's wq|wk|wv (fuse_projections leaves the encoder and the cross
+    blocks apart); the cross block's wk and wv run over the encoder
+    output's rows (M = B x frames), its wq and wo over the tokens'."""
+    D, H, Kv, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+    attn = [("wq", D, H * hd), ("wk", D, Kv * hd), ("wv", D, Kv * hd),
+            ("wo", H * hd, D)]
+    mlp = [("w_up", D, F), ("w_down", F, D)]
+    cross = [("cross " + n, K, N) for n, K, N in attn]
+    calib = attn + mlp + cross
+    serve = [("wqkv", D, (H + 2 * Kv) * hd), ("wo", H * hd, D)] + mlp \
+        + cross
+    return calib, serve, attn + mlp
+
+
+def encdec_per_model(cfg):
+    """(delta_matmul launches a calibration token, fused_qdot launches a
+    forward, decode_attention launches a decode step, launches of an
+    encoder pass) of the whole model: one projection a launch; the cross
+    attention is torch ops, never the decode kernel."""
+    calib, serve, enc = encdec_shapes(cfg)
+    return (len(calib) * cfg.n_layers, len(serve) * cfg.n_layers,
+            cfg.n_layers, len(enc) * cfg.enc_layers)
+
+
+def encdec_kernel_cases(cfg):
+    """The distinct kernel shapes of phase 15's whisper runs:
+    (fused_qdot cases, delta_matmul cases), each (name, M, K, N): decode
+    (M = B) and prefill (M = B*P) at every serve projection, the encoder
+    and the cross block's k/v at M = B x 16 frames (serve) and B x 1,500
+    (the config's encoder length, the last tile ragged); calibration's
+    unfused products at M = B (tokens) and B x 16 (the encoder, the cross
+    k/v)."""
+    from repro_torch.launch.serve import ENC_FRAMES
+    calib, serve, enc = encdec_shapes(cfg)
+    fused, delta = {}, {}
+    for M in (B, B * P):
+        for name, K, N in serve:
+            fused.setdefault((M, K, N), name)
+    for M in (B * ENC_FRAMES, B * cfg.enc_seq):
+        for name, K, N in enc + [("cross wk/wv", cfg.d_model,
+                                  cfg.n_kv * cfg.hd)]:
+            fused.setdefault((M, K, N), name)
+    for name, K, N in calib:
+        delta.setdefault((B, K, N), name)
+    for name, K, N in enc:
+        delta.setdefault((B * ENC_FRAMES, K, N), name)
+    return ([(n, *k) for k, n in fused.items()],
+            [(n, *k) for k, n in delta.items()])
+
+
+def vlm_shapes(cfg):
+    """internvl2's lut_matmul shapes, (name, K, N): the merged serve
+    projections of a layer (--prequantize: 'xla'), the unmerged ones of
+    forward_train, and the prefix projection."""
+    D, H, Kv, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+    serve = [("wqkv", D, (H + 2 * Kv) * hd), ("wo", H * hd, D),
+             ("w_gateup", D, 2 * F), ("w_down", F, D)]
+    train = [("wq", D, H * hd), ("wk", D, Kv * hd), ("wv", D, Kv * hd),
+             ("wo", H * hd, D), ("w_gate", D, F), ("w_up", D, F),
+             ("w_down", F, D)]
+    return serve, train, ("frontend_proj", cfg.frontend_dim, D)
+
+
+def check_encdec_vlm_kernels(dev, errs):
+    """Phase 3 at phase 15's shapes (full width): fused_qdot at every
+    whisper serve shape (encdec_kernel_cases: M = 4, 64, 256 and 6,000)
+    and delta_matmul at its calibration shapes, both modes;
+    decode_attention at 12/12 heads of hd 64 (rope, no qk-norm) at the
+    serve and calibration positions and the chunk edges of its 448
+    positions, and at internvl2's 64/8 of hd 128; lut_matmul at
+    internvl2's merged serve projections (M = 4 both modes, M = 256
+    asym_u8) and its prefix projection (M = 512, both modes).  Folds the
+    max errors into ``errs``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check
+    cfg = configs.get("whisper-small")
+    fused, delta = encdec_kernel_cases(cfg)
+    n = 0
+    for signed in (False, True):
+        mode = "sym_i8" if signed else "asym_u8"
+        for i, (name, M, K, N) in enumerate(fused):
+            r = check.check_fused(check.fused_case(M, K, N, signed, 1800 + i,
+                                                   dev))
+            errs["fused_qdot"] = max(errs["fused_qdot"], r["max_abs_err"])
+            n += 1
+        for i, (name, M, K, N) in enumerate(delta):
+            check.check_delta(check.delta_case(M, K, N, signed, 1850 + i,
+                                               dev))
+            n += 1
+        log(f"[kernels] whisper-small {mode}: fused_qdot at "
+            f"{[(m, k, nn) for _, m, k, nn in fused]} and delta_matmul at "
+            f"{[(m, k, nn) for _, m, k, nn in delta]} held")
+    vcfg = configs.get("internvl2-76b")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [("whisper-small decode", cfg, P + G, [64, 70, 75, 79]),
+             ("whisper-small calibration", cfg, CALIB_TOKENS,
+              [0, 1, 33, 65]),
+             ("internvl2-76b decode", vcfg, P + G, [64, 70, 75, 79])]
+    edges = check.attention_edge_positions(cfg.max_seq, B, cfg.n_kv,
+                                           cfg.hd, sms)
+    for i in range(0, len(edges), B):
+        cases.append(("whisper-small chunk edges", cfg, cfg.max_seq,
+                      (edges[i:i + B] + [cfg.max_seq - 1] * B)[:B]))
+    for j, (tag, c, S, pos) in enumerate(cases):
+        H, Kv, hd = c.n_heads, c.n_kv, c.hd
+        case = check.attention_case(B, S, H, Kv, hd, 1900 + j, dev,
+                                    qk_norm=False, pos=pos)
+        r = check.check_attention(case)
+        a = check.check_attention_append(case)
+        n += 2
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       r["max_abs_err"])
+        log(f"[kernels] decode_attention {tag} H/Kv={H}/{Kv} "
+            f"hd={hd} S={S} pos={pos}: {r['row_flips']} of "
+            f"{r['row_entries']} k-row entries a bf16 step apart, max |out "
+            f"err| {r['max_abs_err']:.3e}; the append in place "
+            f"({a['row_flips']} apart)")
+        del case
+    serve, _, (pname, pK, pN) = vlm_shapes(vcfg)
+    for signed in (False, True):
+        mode = "sym_i8" if signed else "asym_u8"
+        todo = [(name, B, K, N) for name, K, N in serve]
+        if not signed:
+            todo += [(name, B * P, K, N) for name, K, N in serve]
+        todo.append((pname, 2 * vcfg.n_prefix, pK, pN))
+        for i, (name, M, K, N) in enumerate(todo):
+            check.check_lut(check.lut_case(M, K, N, signed, 1950 + i, dev,
+                                           shifted=False, device_draw=True))
+            n += 1
+            log(f"[kernels] lut_matmul internvl2-76b {mode} {name} M={M} "
+                f"K={K} N={N}: bit-exact")
+            torch.cuda.empty_cache()
+    log(f"[kernels] phase 15's shapes: {n} cases held against their plain "
+        f"versions")
+
+
+def time_encdec_vlm_kernels(dev):
+    """Phase 8 at phase 15's shapes, asym_u8, each case held against its
+    plain version on the card before it is timed: whisper's fused_qdot
+    and delta_matmul cases (encdec_kernel_cases), its and internvl2's
+    decode_attention at the serve path's position; internvl2's lut_matmul
+    at the merged serve projections (M = 4 and 256) and the prefix
+    projection (M = 512).
+    Returns {kernel: {arch: {shape: row}}}."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check, ops, ref
+    from repro_torch.kernels.check import cuda_time
+    cfg = configs.get("whisper-small")
+    fused, delta = encdec_kernel_cases(cfg)
+    rows = {"fused_qdot": {"whisper-small": {}},
+            "delta_matmul": {"whisper-small": {}},
+            "decode_attention": {"whisper-small": {}},
+            "lut_matmul": {"internvl2-76b": {}}}
+    for i, (name, M, K, N) in enumerate(fused):
+        c = check.fused_case(M, K, N, False, 2000 + i, dev)
+        err = check.check_fused(c)["max_abs_err"]
+        big = M * K * N > (1 << 33)
+        r = row("fused_qdot", f"whisper-small {name} M={M} K={K} N={N}",
+                lambda: ops.fused_qdot_packed(**c), 50 if M <= B else 10,
+                cuda_time(lambda: check.fused_plain(c), 1 if big else 2,
+                          warmup=0 if big else 2),
+                fused_bound(M, K, N), gathers=M * K * N, b=c["qw"])
+        rows["fused_qdot"]["whisper-small"][f"{name} M={M}"] = dict(
+            r, max_abs_err=err)
+    for i, (name, M, K, N) in enumerate(delta):
+        c = check.delta_case(M, K, N, False, 2050 + i, dev)
+        err = check.check_delta(c)["max_abs_err"]
+        r = row("delta_matmul", f"whisper-small {name} M={M} K={K} N={N} "
+                f"(calibration)", lambda: ops.delta_matmul(**c), 50,
+                cuda_time(lambda: check.delta_plain(c), 2),
+                delta_bound(M, K, N))
+        rows["delta_matmul"]["whisper-small"][f"{name} M={M}"] = dict(
+            r, max_abs_err=err)
+    vcfg = configs.get("internvl2-76b")
+    rows["decode_attention"]["internvl2-76b"] = {}
+    pos = P + G // 2
+    for arch, c_ in (("whisper-small", cfg), ("internvl2-76b", vcfg)):
+        H, Kv, hd = c_.n_heads, c_.n_kv, c_.hd
+        c = check.attention_case(B, P + G, H, Kv, hd, 2090, dev,
+                                 qk_norm=False, pos=[pos] * B)
+        err = check.check_attention(c)["max_abs_err"]
+        r = row("decode_attention", f"{arch} B={B} H={H} Kv={Kv} hd={hd} "
+                f"S={P + G} pos={pos} qk-norm off step",
+                lambda: ops.decode_attention_step(**c), 200,
+                cuda_time(lambda: ref.decode_attention_step_ref(**c), 20),
+                attention_bound(B, H, Kv, hd, pos))
+        rows["decode_attention"][arch][f"B={B} S={P + G}"] = dict(
+            r, max_abs_err=err)
+    serve, _, (pname, pK, pN) = vlm_shapes(vcfg)
+    todo = [(name, M, K, N) for M in (B, B * P) for name, K, N in serve]
+    todo.append((pname, 2 * vcfg.n_prefix, pK, pN))
+    for i, (name, M, K, N) in enumerate(todo):
+        c = check.lut_case(M, K, N, False, 2100 + i, dev, shifted=False,
+                           device_draw=True)
+        check.check_lut(c)
+        big = M * K * N > (1 << 33)
+        r = row("lut_matmul", f"internvl2-76b {name} M={M} K={K} N={N}",
+                lambda: ops.lut_matmul(**c), 50 if M <= B else 5,
+                cuda_time(lambda: check.lut_plain(c), 1,
+                          warmup=0 if big else 1),
+                lut_bound(M, K, N), gathers=M * K * N, b=c["b"],
+                offset=c["offset"])
+        rows["lut_matmul"]["internvl2-76b"][f"{name} M={M}"] = dict(
+            r, max_abs_err=0.0)
+        del c
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _serve_rows(tag, r, extra):
+    """A phase-15 run's JSON row and log line."""
+    row_ = {"prepare_s": r.t_prepare, "prefill_ms": r.t_prefill * 1e3,
+            "prefill_tok_s": B * P / r.t_prefill,
+            "decode_ms_per_step": r.t_decode * 1e3 / (G - 1),
+            "peak_gib": r.peak_bytes / 2**30, **extra}
+    log(f"[encdec/vlm] {tag}: prepare {r.t_prepare:.3f}s, warmup "
+        f"{r.t_warmup:.3f}s; prefill {B}x{P} {r.t_prefill * 1e3:.3f} ms "
+        f"({B * P / r.t_prefill:.1f} tok/s); decode "
+        f"{r.t_decode * 1e3 / (G - 1):.3f} ms/step; peak device memory "
+        f"{r.peak_bytes / 2**30:.3f} GiB; {json.dumps(extra)}; sample ids "
+        f"{r.out[0][:12].tolist()}")
+    return row_
+
+
+def _check_served(r, cfg):
+    import numpy as np
+    assert r.out.shape == (B, G), r.out.shape
+    assert ((r.out >= 0) & (r.out < cfg.vocab)).all()
+    assert r.logits.shape == (B, 1, cfg.vocab), r.logits.shape
+    assert np.isfinite(r.logits).all(), "non-finite logits"
+
+
+def whisper_full_width(rows):
+    """Phase 15 (a): whisper-small whole (12 + 12 layers, every width)
+    through serve's prepare and run, --calibrate 1, 4 requests, prompt
+    64, gen 16, asym_u8 and sym_i8, each run's launch counts read just
+    after it and held to the path's (encdec_per_model): a calibration
+    batch runs the encoder once (its 72 projections) and 10 projections
+    a decoder layer a token; serve encodes the requests once, then 8
+    projections a decoder layer a forward.  Returns (launches, the
+    asym_u8 calibration table)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = configs.get("whisper-small")
+    calib_pt, serve_pf, attn_ps, enc_pp = encdec_per_model(cfg)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(delta_matmul=enc_pp + calib_pt * CALIB_TOKENS,
+                fused_qdot=enc_pp + serve_pf * (G + 2),
+                decode_attention=attn_ps * (CALIB_TOKENS + G))
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    table = None
+    for mode in ("asym_u8", "sym_i8"):
+        args = serve.build_parser().parse_args(
+            ["--arch", "whisper-small", "--requests", str(B), "--prompt-len",
+             str(P), "--gen-len", str(G), "--calibrate", "1",
+             "--quant-mode", mode])
+        tag = f"whisper-small (12 + 12 layers) {mode}"
+        with PlainGuard():
+            ops.reset_launches()
+            prepared = serve.prepare(args)
+            r = serve.run(args, prepared)
+            counts = _launched("encdec", tag, want)
+        sites = len(prepared.table.sites)
+        if mode == "asym_u8":
+            table = prepared.table
+        del prepared
+        for k in counts:
+            launches[k] += counts[k]
+        assert sites == calib_pt + enc_pp, (sites, calib_pt + enc_pp)
+        _check_served(r, cfg)
+        rows[f"whisper-small {mode}"] = _serve_rows(tag, r, {
+            "encoder_frames": serve.ENC_FRAMES,
+            "encoder_ms": r.t_encode * 1e3, "fused_qdot_per_step": serve_pf,
+            "fused_qdot_per_encoder": enc_pp,
+            "decode_attention_per_step": attn_ps,
+            "delta_matmul_per_calibration_token": calib_pt,
+            "calibration_sites": sites})
+        del r
+        torch.cuda.empty_cache()
+    return launches, table
+
+
+def whisper_long_encoder(table, rows):
+    """Phase 15 (b): whisper-small over the config's own encoder length
+    (enc_seq = 1,500 frames; serve's requests carry 16), asym_u8, on (a)'s
+    calibration table: serve's prepare and run (``enc_frames``), the
+    encoder once (72 fused_qdot at M = 6,000, the last tile ragged), then
+    every forward's 24 cross k/v projections at M = 6,000; launch counts
+    held to the path's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = configs.get("whisper-small")
+    _, serve_pf, attn_ps, enc_pp = encdec_per_model(cfg)
+    args = serve.build_parser().parse_args(
+        ["--arch", "whisper-small", "--requests", str(B), "--prompt-len",
+         str(P), "--gen-len", str(G), "--calibrate", "1"])
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(fused_qdot=enc_pp + serve_pf * (G + 2),
+                decode_attention=attn_ps * G)
+    tag = f"whisper-small, {cfg.enc_seq} encoder frames, asym_u8"
+    with PlainGuard():
+        prepared = serve.prepare(args, table=table)
+        ops.reset_launches()
+        r = serve.run(args, prepared, enc_frames=cfg.enc_seq)
+        counts = _launched("encdec", tag, want)
+    del prepared
+    _check_served(r, cfg)
+    rows[f"whisper-small {cfg.enc_seq} frames asym_u8"] = _serve_rows(
+        tag, r, {"encoder_frames": cfg.enc_seq,
+                 "encoder_ms": r.t_encode * 1e3,
+                 "fused_qdot_per_step": serve_pf,
+                 "fused_qdot_per_encoder": enc_pp,
+                 "cross_kv_rows": B * cfg.enc_seq})
+    torch.cuda.empty_cache()
+    return counts
+
+
+VLM_LAYERS = 4                  # internvl2-76b's depth on the card, of 80
+
+
+def vlm_full_width(rows):
+    """Phase 15 (c): internvl2-76b at VLM_LAYERS of 80 layers, every
+    width as published, --prequantize ('xla': every projection a
+    lut_matmul), 4 requests, prompt 64, gen 16, asym_u8 and sym_i8; serve
+    prepends no prefix.  Launch counts held to the path's: 4 lut_matmul a
+    layer a forward, one decode_attention a layer a decode step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    base = configs.get("internvl2-76b")
+    cfg = dataclasses.replace(base, n_layers=VLM_LAYERS)
+    serve_shapes, _, _ = vlm_shapes(cfg)
+    L = cfg.n_layers
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(lut_matmul=len(serve_shapes) * L * (G + 2),
+                decode_attention=L * G)
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    for mode in ("asym_u8", "sym_i8"):
+        args = serve.build_parser().parse_args(
+            ["--arch", "internvl2-76b", "--requests", str(B), "--prompt-len",
+             str(P), "--gen-len", str(G), "--prequantize", "--quant-mode",
+             mode])
+        tag = f"internvl2-76b ({L} of {base.n_layers} layers) {mode}"
+        with PlainGuard():
+            ops.reset_launches()
+            prepared = serve.prepare(args, cfg=cfg)
+            r = serve.run(args, prepared)
+            counts = _launched("vlm", tag, want)
+        del prepared
+        for k in counts:
+            launches[k] += counts[k]
+        _check_served(r, cfg)
+        rows[f"internvl2-76b {mode}"] = _serve_rows(tag, r, {
+            "layers": L, "lut_matmul_per_step": len(serve_shapes) * L,
+            "decode_attention_per_step": L})
+        del r
+        torch.cuda.empty_cache()
+    return launches
+
+
+def encdec_vlm_parity_one_unit():
+    """Phase 15 (d): one pattern unit of each at full width, every kernel
+    launch held against its plain version (CpuShadow).  whisper-small at
+    one encoder layer, one decoder layer and its cross block, served
+    calibrated in both modes (on the CPU: every launch is small);
+    internvl2-76b's forward_train at one layer under no_grad ('xla',
+    asym_u8; sym_i8's lut_matmul shapes are phase 3's), B = 2 with the
+    256-patch prefix and 64 tokens: the prefix projection (M = 512) and
+    the layer's 7 projections (M = 640), each held against its plain
+    version on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import check
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    torch.set_num_threads(os.cpu_count() or 1)
+    from repro_torch.launch.serve import ENC_FRAMES
+    cfg = dataclasses.replace(configs.get("whisper-small"), n_layers=1,
+                              enc_layers=1)
+    calib_pt, serve_pf, attn_ps, enc_pp = encdec_per_model(cfg)
+    b, p, g = 2, 3, 3
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(15),
+                           cfg, device="cuda")
+    rng = np.random.default_rng(16)
+    cal_frames = rng.normal(size=(b, ENC_FRAMES, cfg.d_model)).astype(
+        np.float32)
+    cal = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (b, p)).astype(np.int32)
+    frames = rng.normal(size=(b, ENC_FRAMES, cfg.d_model)).astype(
+        np.float32)
+    for mode in ("asym_u8", "sym_i8"):
+        q = QuantConfig(design="design2", backend="fused", mode=mode,
+                        inference=True)
+        t0 = time.perf_counter()
+        with check.CpuShadow() as sh:
+            _, ids, lgs, _ = _serve_once(cfg, params, q, None, cal, prompts,
+                                         g, "cuda", cal_frames=cal_frames,
+                                         frames=frames)
+        tag = f"whisper-small (1 + 1 layers) {mode}"
+        _shadow_log(tag, sh, t0)
+        want = {"delta_matmul": enc_pp + calib_pt * (p + 2),
+                "fused_qdot_packed": enc_pp + serve_pf * g,
+                "decode_attention": attn_ps * ((p + 2) + (g - 1))}
+        got = {k: sh.stats[k]["calls"] for k in want}
+        assert got == want, (tag, got, want)
+        assert all(bool(torch.isfinite(x).all()) for x in lgs)
+        log(f"[parity] {tag}: card ids {ids.tolist()}")
+    del params
+    vcfg = dataclasses.replace(configs.get("internvl2-76b"), n_layers=1)
+    _, train_shapes, _ = vlm_shapes(vcfg)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(17),
+                           vcfg, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             configs.make_smoke_batch(vcfg, 2, P, seed=18).items()}
+    assert tuple(batch["frontend"].shape) == (2, vcfg.n_prefix,
+                                              vcfg.frontend_dim)
+    for mode in ("asym_u8",):
+        q = QuantConfig(design="design2", backend="xla", mode=mode)
+        t0 = time.perf_counter()
+        with check.CpuShadow(("lut_matmul",),
+                             card_gathers=MOE_CARD_GATHERS) as sh:
+            loss, _ = T.forward_train(params, batch, vcfg, q)
+        tag = f"internvl2-76b forward_train (1 layer, prefix 256) {mode}"
+        _shadow_log(tag, sh, t0)
+        st = sh.stats["lut_matmul"]
+        assert st["calls"] == 1 + len(train_shapes), (tag, st)
+        assert st["on_card"] == st["calls"], (tag, st)
+        assert bool(torch.isfinite(loss)), loss
+        log(f"[parity] {tag}: loss {float(loss):.6f}")
+    del params, batch
+    torch.cuda.empty_cache()
+
+
 def row(kernel, shape, fn, iters, plain_ms, bounds, gathers=None, b=None,
         offset=0):
     """One timing row of phase 8.  ``gathers`` (the gather kernels: M*K*N
@@ -2274,14 +2772,17 @@ def time_kernels(cfg, dev):
 
 
 def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
-                 moe_launches, errs, fam_rows, fam_launches):
+                 moe_launches, errs, fam_rows, fam_launches, ev_rows,
+                 ev_launches):
     """The kernels' JSON record: per kernel the launches of the paths'
     runs, the max error of phase 3 and the timings of phase 8 (for
     delta_matmul also its planned-QAT shape, ``plan_qat``, and the
     quantized unembed's, ``unembed``; for the three product kernels the
     merged projections of phase 12 (c), ``serve``; for the three serving
     kernels the MoE family's shapes, ``moe``, and phase 14's,
-    ``families``, per config), each with the launches of its own runs."""
+    ``families``, per config; phase 15's, ``encdec_vlm``, per config:
+    whisper-small's three serving kernels and internvl2-76b's
+    lut_matmul), each with the launches of its own runs."""
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
     kernels = []
@@ -2311,7 +2812,8 @@ def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
                    for m, r in by_m.items()}}
         for sub, sub_rows, sub_launches in (
                 ("moe", moe_rows, moe_launches),
-                ("families", fam_rows, fam_launches)):
+                ("families", fam_rows, fam_launches),
+                ("encdec_vlm", ev_rows, ev_launches)):
             if name in sub_rows:
                 kernels[-1][sub] = {
                     arch: {"launches": sub_launches[arch][name],
@@ -2476,27 +2978,34 @@ def main() -> int:
         check_moe_kernels(dev, errs)
         t3 = time.perf_counter()
         check_family_kernels(dev, errs)
+        t4 = time.perf_counter()
+        check_encdec_vlm_kernels(dev, errs)
         log(f"[kernels] phase 3 seconds: serving path {t1 - t0:.1f}, "
             f"training {t2 - t1:.1f}, MoE {t3 - t2:.1f}, other families "
-            f"{time.perf_counter() - t3:.1f}")
+            f"{t4 - t3:.1f}, encoder-decoder and VLM "
+            f"{time.perf_counter() - t4:.1f}")
         phase("4. full-width serve (main path)")
         launches, table = serve_full_width(cfg)
-        phase("5. slice parity: card vs CPU at 2 layers of full width")
-        parity_two_layers(cfg)
+        phase(f"5. slice parity: card vs CPU at {PARITY_LAYERS} layer(s) of "
+              f"full width")
+        slice_parity(cfg)
         parity_initial(cfg)
     # training needs autograd: outside the no_grad block
     phase("6. full-width QAT training")
     launches.update(train_full_width(cfg))
-    phase("7. train parity: card vs CPU at 2 layers of full width")
-    train_parity_two_layers(cfg)
+    phase(f"7. train parity: card vs CPU at {PARITY_LAYERS} layer(s) of full "
+          f"width")
+    train_parity(cfg)
     with torch.no_grad():
         phase("8. timing")
         summary, plan_qat, serve_rows = time_kernels(cfg, dev)
         moe_rows = time_moe_kernels(dev)
         t0 = time.perf_counter()
         fam_rows = time_family_kernels(dev)
-        log(f"[timing] the other families' rows: "
-            f"{time.perf_counter() - t0:.1f}s")
+        t1 = time.perf_counter()
+        ev_rows = time_encdec_vlm_kernels(dev)
+        log(f"[timing] the other families' rows: {t1 - t0:.1f}s; the "
+            f"encoder-decoder and VLM rows: {time.perf_counter() - t1:.1f}s")
         phase("9. trace of the decode step")
         trace_decode(cfg)
         phase("10. per-layer design plans at full width")
@@ -2516,6 +3025,15 @@ def main() -> int:
         phase("14. the remaining decoder families at full width")
         fam_launches = families_full_width()
         families_parity_one_unit()
+        phase("15. encoder-decoder and VLM at full width")
+        ev_launches, ev_serve = {}, {}
+        ev_launches["whisper-small"], table = whisper_full_width(ev_serve)
+        more = whisper_long_encoder(table, ev_serve)
+        for k in more:
+            ev_launches["whisper-small"][k] += more[k]
+        ev_launches["internvl2-76b"] = vlm_full_width(ev_serve)
+        log("[encdec/vlm] " + json.dumps({"encdec_vlm": ev_serve}))
+        encdec_vlm_parity_one_unit()
     # the plan runs' launches join the paths' counts, but for the planned
     # QAT steps' delta_matmul launches (M = TB*TS), which stand apart
     # beside their own timing row
@@ -2532,7 +3050,8 @@ def main() -> int:
         launches[f"{k}_serve"] = v
     launches["delta_matmul_unembed"] = unembed_launches
     kernels = kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
-                           moe_launches, errs, fam_rows, fam_launches)
+                           moe_launches, errs, fam_rows, fam_launches,
+                           ev_rows, ev_launches)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

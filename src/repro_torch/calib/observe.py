@@ -203,11 +203,15 @@ def calibrate(pparams, cfg, qcfg: QuantConfig, batches,
 
 
 def calibrate_decode(pparams, cfg, qcfg: QuantConfig, prompts,
-                     gen_len: int = 0, device="cuda") -> CalibrationTable:
+                     gen_len: int = 0, device="cuda",
+                     enc_frontend=None) -> CalibrationTable:
     """Decode-shaped calibration: feed ``prompts`` (B, P) int32 token by
     token (plus ``gen_len`` greedy continuations) through the decode
-    step with the observer installed.  ``pparams`` must be prequantized
-    (quant.prequantize_weights) so sites carry tree-path names."""
+    step with the observer installed.  An encdec model first runs its
+    encoder over ``enc_frontend`` (B, S_enc, frontend_dim or d_model),
+    observed too, and every step's cross blocks read its output.
+    ``pparams`` must be prequantized (quant.prequantize_weights) so
+    sites carry tree-path names."""
     from ..models import transformer as T
     dev = resolve(device)
     prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
@@ -215,7 +219,13 @@ def calibrate_decode(pparams, cfg, qcfg: QuantConfig, prompts,
     B, P = prompts.shape
     obs = Observer(qcfg)
     with observing(obs):
-        state = T.init_decode_state(cfg, B, P + max(gen_len, 1), device=dev)
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = T._run_encoder(
+                pparams, torch.as_tensor(np.asarray(enc_frontend),
+                                         device=dev), cfg, qcfg)
+        state = T.init_decode_state(cfg, B, P + max(gen_len, 1), device=dev,
+                                    enc_out=enc_out)
         logits = None
         for i in range(P):
             logits, state = T.forward_decode(pparams, state,

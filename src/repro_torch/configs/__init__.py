@@ -2,9 +2,9 @@
 
 ``get(name)`` returns the full-size config, ``get_smoke(name)`` its
 reduced same-family config for CPU tests.  ``ARCHS`` lists the configs
-this package serves: every decoder-only config of the reference (the
-dense, MoE, hybrid and ssm families); the encoder-decoder and VLM
-configs are not ported yet.
+this package serves: every config of the reference (the dense, MoE,
+hybrid and ssm families, the encoder-decoder whisper-small and the VLM
+internvl2-76b).
 """
 from __future__ import annotations
 
@@ -14,10 +14,11 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-# the ported configs, one module each (dense, moe, hybrid, ssm)
+# the ported configs, one module each (dense, moe, hybrid, ssm, encdec,
+# vlm)
 ARCHS = ("qwen3_1_7b", "gemma_7b", "minitron_8b", "nemotron_4_340b",
          "mixtral_8x7b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
-         "xlstm_125m")
+         "xlstm_125m", "whisper_small", "internvl2_76b")
 
 
 @dataclass(frozen=True)
@@ -114,9 +115,19 @@ def get_smoke(name: str) -> ArchConfig:
 def make_smoke_batch(cfg: ArchConfig, batch: int = 2, seq: int = 16,
                      seed: int = 0) -> Dict[str, np.ndarray]:
     """Random tokens and labels (batch, seq) int32 from a numpy seed, as
-    the reference draws them (the ported families take no frontend)."""
+    the reference draws them, then from the same rng the stub frontend's
+    float32 embeddings: (batch, 8, frontend_dim or d_model) encoder
+    frames for encdec, (batch, n_prefix, ...) prefix patches for vlm."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab, (batch, seq)).astype(
-                np.int32),
-            "labels": rng.integers(0, cfg.vocab, (batch, seq)).astype(
-                np.int32)}
+    b = {"tokens": rng.integers(0, cfg.vocab, (batch, seq)).astype(
+             np.int32),
+         "labels": rng.integers(0, cfg.vocab, (batch, seq)).astype(
+             np.int32)}
+    width = cfg.frontend_dim or cfg.d_model
+    if cfg.family == "encdec":
+        b["frontend"] = rng.normal(size=(batch, 8, width)).astype(
+            np.float32)
+    if cfg.family == "vlm":
+        b["frontend"] = rng.normal(size=(batch, cfg.n_prefix, width)
+                                   ).astype(np.float32)
+    return b

@@ -53,13 +53,56 @@ def _expected_shapes(cfg: ArchConfig, kind: str) -> dict:
     return want
 
 
+def _outside_units(cfg: ArchConfig) -> dict:
+    """The shapes of the params outside the decoder units, by path: the
+    encoder's layers (a stack over enc_layers), its final norm and the
+    decoder layers' cross blocks (a stack over n_layers); the frontend
+    projection."""
+    D, H, Kv, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+                       cfg.d_ff)
+    want = {}
+    if cfg.family == "encdec":
+        for pre, L in (("enc.layers", cfg.enc_layers),
+                       ("enc.cross", cfg.n_layers)):
+            want.update({f"{pre}.attn.wq": (L, D, H * hd),
+                         f"{pre}.attn.wk": (L, D, Kv * hd),
+                         f"{pre}.attn.wv": (L, D, Kv * hd),
+                         f"{pre}.attn.wo": (L, H * hd, D)})
+        E = cfg.enc_layers
+        want.update({"enc.layers.norm1": (E, D), "enc.layers.norm2": (E, D),
+                     "enc.layers.mlp.w_up": (E, D, F),
+                     "enc.layers.mlp.w_down": (E, F, D),
+                     "enc.norm": (D,), "enc.cross.norm": (cfg.n_layers, D)})
+        if cfg.mlp_kind in ("geglu", "swiglu"):
+            want["enc.layers.mlp.w_gate"] = (E, D, F)
+    if cfg.frontend_dim and cfg.frontend_dim != D:
+        want["frontend_proj"] = (cfg.frontend_dim, D)
+    return want
+
+
+def _check_shapes(root, want: dict, cfg: ArchConfig, prefix: str) -> None:
+    for path, shape in want.items():
+        leaf = root
+        for k in path.split("."):
+            if k not in leaf:
+                raise ValueError(f"params do not match {cfg.name}: "
+                                 f"{prefix}{path} is missing")
+            leaf = leaf[k]
+        if tuple(leaf.shape) != shape:
+            raise ValueError(f"params do not match {cfg.name}: "
+                             f"{prefix}{path} is {tuple(leaf.shape)}, "
+                             f"expected {shape}")
+
+
 def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
     """The reference's params tree (numpy leaves) as the port's params
     (tensors on ``device``), checking the stacked layer shapes against
     ``cfg``: one unit per pattern slot, and in each the projections of
     its kind (attention; the MoE router, expert stacks and shared
     expert; the RG-LRU's, mLSTM's and sLSTM's kernels, gates, conv and
-    norm gains; the MLP of an attention or recurrent block)."""
+    norm gains; the MLP of an attention or recurrent block); the
+    encoder's layers, norm and cross blocks, and the frontend
+    projection, where the config has them."""
     dev = resolve(device)
 
     def conv(node):
@@ -90,17 +133,8 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda"):
                              "moe.shared.w_down": (L, Fs, D)})
                 if "w_gate" in unit["moe"]["shared"]:
                     want["moe.shared.w_gate"] = (L, D, Fs)
-        for path, shape in want.items():
-            leaf = unit
-            for k in path.split("."):
-                if k not in leaf:
-                    raise ValueError(f"params do not match {cfg.name}: "
-                                     f"units.{slot}.{path} is missing")
-                leaf = leaf[k]
-            if tuple(leaf.shape) != shape:
-                raise ValueError(f"params do not match {cfg.name}: "
-                                 f"units.{slot}.{path} is "
-                                 f"{tuple(leaf.shape)}, expected {shape}")
+        _check_shapes(unit, want, cfg, f"units.{slot}.")
+    _check_shapes(params, _outside_units(cfg), cfg, "")
     return params
 
 

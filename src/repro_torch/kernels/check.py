@@ -352,20 +352,28 @@ def gather_wavefronts(b, offset: int = 0, rows: int = 256) -> float:
 
 
 def lut_case(M, K, N, signed, seed, device, design="design2",
-             pattern="uniform", shifted=True):
+             pattern="uniform", shifted=True, device_draw=False):
     """Inputs of one lut_matmul launch: the narrowed product table and
     operands drawn by lut_indices.  ``shifted``: as the Pallas function
     takes them, pre-shifted into [0, 255] (uint8 b, offset 0); otherwise
     as the 'xla' backend passes them, int8-valued with offset 128 when
-    ``signed``."""
+    ``signed``.  ``device_draw``: the uniform weights drawn on the
+    device."""
     rng = np.random.default_rng(seed)
-    a, b = lut_indices(M, K, N, pattern, rng)
+    if device_draw:
+        if pattern != "uniform":
+            raise ValueError("device_draw draws uniform operands only")
+        a = rng.integers(0, 256, (M, K))
+        b = _weight_operand(rng, seed, K, N, 0, 256, device, True)
+    else:
+        a, b = lut_indices(M, K, N, pattern, rng)
+        b = torch.from_numpy(b)
     off = 128 if signed and not shifted else 0
     lut, unsigned = ops.narrow_lut(ops.get_signed_lut(design) if signed
                                    else ops.get_lut(design))
     return dict(a=torch.from_numpy((a - off).astype(np.int32)).to(device),
-                b=torch.from_numpy((b - off).astype(
-                    np.int8 if off else np.uint8)).to(device),
+                b=(b - off).to(torch.int8 if off else torch.uint8).to(
+                    device),
                 lut=lut.to(device), unsigned=unsigned, offset=off)
 
 
@@ -657,11 +665,12 @@ class CpuShadow:
         """names: the ops wrappers to shadow (the calibrated serving
         path's three by default, ``serving(backend)`` for a served run on
         another backend, CpuShadow.TRAIN for the training kernels).
-        ``card_gathers``: a delta_matmul or fused_qdot launch of more
-        than this many gathers (M*K*N) is held against its plain version
-        on the card (delta_plain, fused_plain), not on the CPU (the
-        vocabulary-wide unembed at prefill size, the MoE experts at full
-        width); ``stats`` counts those launches as ``on_card``."""
+        ``card_gathers``: a delta_matmul, fused_qdot or lut_matmul
+        launch of more than this many gathers (M*K*N) is held against its
+        plain version on the card (delta_plain, fused_plain, lut_plain),
+        not on the CPU (the vocabulary-wide unembed at prefill size, the
+        MoE experts and internvl2's projections at full width); ``stats``
+        counts those launches as ``on_card``."""
         self.names = tuple(names)
         self.card_gathers = card_gathers
 
@@ -726,9 +735,15 @@ class CpuShadow:
 
     def _lut(self, a, b, lut, unsigned, offset=0):
         out = self.saved["lut_matmul"](a, b, lut, unsigned, offset)
-        want = ref.approx_matmul_ref(_cpu(a), _cpu(b),
-                                     ops._widen(_cpu(lut), unsigned), offset)
-        assert torch.equal(out.cpu(), want), "lut_matmul: card != cpu"
+        case = dict(a=a, b=b, lut=lut, unsigned=unsigned, offset=offset)
+        gathers = a.shape[0] * a.shape[1] * b.shape[1]
+        if self.card_gathers is not None and gathers > self.card_gathers:
+            assert torch.equal(out, lut_plain(case)), \
+                "lut_matmul: kernel != plain on the card"
+            self.stats["lut_matmul"]["on_card"] += 1
+        else:
+            want = lut_plain({k: _cpu(v) for k, v in case.items()})
+            assert torch.equal(out.cpu(), want), "lut_matmul: card != cpu"
         self._note("lut_matmul", 0.0)
         return out
 

@@ -5,15 +5,26 @@ per-slot cache positions.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --requests 4 --prompt-len 64 --gen-len 16 --calibrate 1
 
---arch takes every decoder-only config of the reference (configs.ARCHS):
-the dense qwen3-1.7b, gemma-7b, minitron-8b and nemotron-4-340b, the
-MoE mixtral-8x7b and llama4-scout-17b-a16e (the experts' projections
-are qdots of their own, one per expert), the hybrid recurrentgemma-2b
-(RG-LRU blocks and local attention) and the ssm xlstm-125m (mLSTM and
+--arch takes every config of the reference (configs.ARCHS): the dense
+qwen3-1.7b, gemma-7b, minitron-8b and nemotron-4-340b, the MoE
+mixtral-8x7b and llama4-scout-17b-a16e (the experts' projections are
+qdots of their own, one per expert), the hybrid recurrentgemma-2b
+(RG-LRU blocks and local attention), the ssm xlstm-125m (mLSTM and
 sLSTM blocks; its mLSTM keeps wq/wk/wv unmerged, quant.fuse_projections
-says why).  Under --continuous an MoE request's ids can depend on its
-batch: an expert's capacity is shared by the tokens of a forward, so a
-token dropped in a full batch may be kept alone (the reference's too).
+says why), the encoder-decoder whisper-small and the VLM internvl2-76b.
+Under --continuous an MoE request's ids can depend on its batch: an
+expert's capacity is shared by the tokens of a forward, so a token
+dropped in a full batch may be kept alone (the reference's too).
+
+whisper-small's requests carry stub encoder frames, (B, 16, d_model)
+drawn after the prompts: serve encodes them once, before the warm-up,
+and every prefill and decode step's cross blocks read the output (the
+encoder's time has a line of its own).  Calibration runs the encoder
+too, on frames drawn before its prompts.  --continuous refuses
+encdec, as the reference does.  internvl2-76b serves as the dense
+decoder it holds: serving prepends no prefix, so --calibrate never
+visits its frontend_proj and apply_calibration raises KeyError for
+that site, as the reference's does; --prequantize serves it.
 
 Quantization precomputation ladder (quant/linear.py):
   --prequantize      cache weight quantization once (q/scale/zp/colsum)
@@ -66,6 +77,10 @@ from ..quant import QuantConfig
 from ..train import make_prefill_step, make_serve_step
 
 
+# stub encoder frames a request carries (the reference's serve)
+ENC_FRAMES = 16
+
+
 def _calibration_prompts(cfg, rng, batches: int, requests: int,
                          prompt_len: int):
     return [rng.integers(0, cfg.vocab, (requests, prompt_len))
@@ -90,11 +105,17 @@ def prepare_params(params, cfg, qcfg, args, device="cuda", table=None):
         from ..calib import apply_calibration, calibrate_decode
         if table is None:
             crng = np.random.default_rng(4242)
+            enc_frontend = None
+            if cfg.family == "encdec":      # drawn before the prompts
+                enc_frontend = crng.normal(size=(
+                    args.requests, ENC_FRAMES,
+                    cfg.frontend_dim or cfg.d_model)).astype(np.float32)
             for prompts in _calibration_prompts(cfg, crng, args.calibrate,
                                                 args.requests,
                                                 args.prompt_len):
                 t = calibrate_decode(params, cfg, qcfg, prompts, gen_len=2,
-                                     device=device)
+                                     device=device,
+                                     enc_frontend=enc_frontend)
                 table = t if table is None else table.merge(t)
         params = apply_calibration(params, table, clip=args.clip)
         notes.append(f"static act scales ({len(table.sites)} sites, "
@@ -194,6 +215,7 @@ class ServeResult:
     t_prefill: float           # steady state, seconds
     t_decode: float            # steady state, seconds for gen_len-1 steps
     peak_bytes: int            # device memory high-water mark (cuda)
+    t_encode: float = 0.0      # encdec: the requests' encoder pass
 
 
 @dataclasses.dataclass
@@ -261,7 +283,10 @@ def serve_continuous(params, cfg, qcfg, args, rng, device="cuda"):
     per_slot=True).  A finished slot is prefilled at once with the next
     queued request (a B = 1 prefill scattered into the slot) while the
     rest decode.  Returns (out (N, gen_len), logits, t_warmup, t_serve,
-    steps, slots)."""
+    steps, slots).  Refuses encdec, as the reference does."""
+    if cfg.family == "encdec":
+        raise NotImplementedError("--continuous: encdec requests carry "
+                                  "per-request encoder state")
     dev = resolve(device)
     P, G = args.prompt_len, args.gen_len
     N = args.continuous
@@ -331,12 +356,14 @@ def serve_continuous(params, cfg, qcfg, args, rng, device="cuda"):
 
 
 @torch.no_grad()
-def run(args, prepared: Prepared = None):
+def run(args, prepared: Prepared = None, enc_frames: int = ENC_FRAMES):
     """Serve as ``main`` does and return the outputs and timings: a
     ServeResult, or with --continuous a ContinuousResult.  ``prepared``
     (from ``prepare``) skips the build and the ladder; its QuantConfig
-    must be the one ``args`` asks for.  The peak memory is the device's
-    high-water mark since ``prepare`` reset it (or since the caller did)."""
+    must be the one ``args`` asks for.  ``enc_frames``: the encoder
+    frames an encdec request carries (the config's enc_seq, say, in
+    place of serve's 16).  The peak memory is the device's high-water
+    mark since ``prepare`` reset it (or since the caller did)."""
     p = prepared or prepare(args)
     if p.qcfg != quant_config(args):
         raise ValueError(f"prepared for {p.qcfg}, asked for "
@@ -364,10 +391,23 @@ def run(args, prepared: Prepared = None):
     serve = make_serve_step(cfg, qcfg)
     prefill = make_prefill_step(cfg, qcfg)
 
+    # encdec: the requests' frames, drawn after the prompts, encoded once
+    # for the warm-up and the timed states
+    enc_out, t_encode = None, 0.0
+    if cfg.family == "encdec":
+        frames = torch.as_tensor(rng.normal(size=(
+            B, enc_frames, cfg.frontend_dim or cfg.d_model)).astype(
+                np.float32), device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        enc_out = T._run_encoder(params, frames, cfg, qcfg)
+        _sync(dev)
+        t_encode = time.perf_counter() - t0
+
     # warm both steps on a throwaway state, so the timed rows below are
     # steady state
     t0 = time.perf_counter()
-    warm = T.init_decode_state(cfg, B, s_max, device=dev)
+    warm = T.init_decode_state(cfg, B, s_max, device=dev, enc_out=enc_out)
     tok0 = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     if args.prefill == "fused":
         _, _, warm = prefill(params, warm, prompts_dev)
@@ -376,7 +416,7 @@ def run(args, prepared: Prepared = None):
     del warm
     t_warmup = time.perf_counter() - t0
 
-    state = T.init_decode_state(cfg, B, s_max, device=dev)
+    state = T.init_decode_state(cfg, B, s_max, device=dev, enc_out=enc_out)
     _sync(dev)
     t0 = time.perf_counter()
     if args.prefill == "fused":
@@ -398,7 +438,7 @@ def run(args, prepared: Prepared = None):
     t_decode = time.perf_counter() - t0
     return ServeResult(out.cpu().numpy(), logits.float().cpu().numpy(),
                        p.t_build, p.t_prepare, t_warmup, t_prefill,
-                       t_decode, peak())
+                       t_decode, peak(), t_encode)
 
 
 def main(argv=None):
@@ -420,6 +460,10 @@ def main(argv=None):
               f"{r.steps} batched decode steps: {r.t_serve:.3f}s, "
               f"{N * (P + G) / r.t_serve:.1f} tok/s")
     else:
+        if r.t_encode:
+            print(f"[serve] encoder: {B} x {ENC_FRAMES} frames in "
+                  f"{r.t_encode * 1e3:.3f}ms (once, before the warm-up; "
+                  f"not in the rows below)")
         print(f"[serve] prefill[{args.prefill}]: {n_pre} tokens in "
               f"{r.t_prefill * 1e3:.3f}ms ({n_pre / r.t_prefill:.1f} tok/s)")
         print(f"[serve] decode: {max(G - 1, 0)} steps in "

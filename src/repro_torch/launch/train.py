@@ -101,14 +101,17 @@ def _save(ckpt_dir: str, step: int, params, opt_state) -> None:
           f"{time.perf_counter() - t0:.1f}s")
 
 
-def run(args: argparse.Namespace) -> TrainResult:
+def run(args: argparse.Namespace, cfg=None) -> TrainResult:
+    """Train as ``main`` does.  ``cfg``: the model config to train in place
+    of ``--arch``'s (a depth-cut variant of it, say)."""
     dev = resolve(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.cuda.reset_peak_memory_stats(dev)
-    cfg = (configs.get_smoke(args.arch) if args.smoke
-           else configs.get(args.arch))
+    if cfg is None:
+        cfg = (configs.get_smoke(args.arch) if args.smoke
+               else configs.get(args.arch))
     qcfg = QuantConfig(design=args.design, backend=args.backend,
                        mode=args.quant_mode)
     ocfg = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),

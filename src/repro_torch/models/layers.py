@@ -6,7 +6,7 @@ paper's approximate multiplier when the run's QuantConfig enables it.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,7 +61,9 @@ def _split_heads(x, n, d):
 def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
               n_kv: int, head_dim: int, causal: bool = True,
               window: Optional[int] = None, qk_norm: bool = False,
-              cache: Optional[dict] = None, rope_theta: float = 10000.0):
+              cache: Optional[dict] = None,
+              cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              rope_theta: float = 10000.0):
     """x: (B, S, D). Returns (out, new_cache).
 
     cache: {"k": (B, S_max, n_kv, hd), "v": ..., "idx": int32 scalar, or
@@ -70,6 +72,11 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
     new_cache holds the same tensors and idx + S.  Every position written
     must lie below S_max (the caller keeps it so: launch.serve raises
     before a slot would pass the cache).
+
+    cross_kv: precomputed (k, v), (B, S_enc, n_kv, hd) each, for
+    encoder-decoder cross attention: q from wq alone, k and v as given
+    (no k-norm, no rope), no cache, the mask all ones; never the decode
+    kernel, also at S = 1.
     """
     B, S, _ = x.shape
     idx = cache["idx"] if cache is not None else None
@@ -77,7 +84,7 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
     if positions is None and cache is not None:
         ar = torch.arange(S, dtype=torch.int32, device=x.device)
         positions = (idx[:, None] + ar) if per_slot else (idx + ar)
-    if "wqkv" in p:
+    if cross_kv is None and "wqkv" in p:
         # serving-time merged projection (quant.fuse_projections): one
         # qdot, split by head counts
         qkv = qdot(x, p["wqkv"], qcfg)
@@ -88,10 +95,13 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
         v = _split_heads(v, n_kv, head_dim)
     else:
         q = _split_heads(qdot(x, p["wq"], qcfg), n_heads, head_dim)
-        k = _split_heads(qdot(x, p["wk"], qcfg), n_kv, head_dim)
-        v = _split_heads(qdot(x, p["wv"], qcfg), n_kv, head_dim)
+        if cross_kv is None:
+            k = _split_heads(qdot(x, p["wk"], qcfg), n_kv, head_dim)
+            v = _split_heads(qdot(x, p["wv"], qcfg), n_kv, head_dim)
+        else:
+            k, v = cross_kv
 
-    if cache is not None and S == 1:
+    if cache is not None and S == 1 and cross_kv is None:
         # fused decode step: qk-norm + rope + masked single-query
         # attention in one kernel, then the cache append
         out, ck, cv = ops.decode_attention(
@@ -104,8 +114,9 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
 
     if qk_norm:
         q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
-    if rope_theta:
+        if cross_kv is None:
+            k = rmsnorm(k, p["k_norm"])
+    if cross_kv is None and rope_theta:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
 

@@ -1,5 +1,5 @@
-"""The decoder of every decoder-only family: params init, the layer
-loop and the decode step.
+"""Every family's model: params init, the encoder, the layer loop and
+the decode step.
 
 Params keep the reference's tree: ``{"embed", "final_norm", "units":
 [slot params with a leading n_units axis on every leaf]}``, one stacked
@@ -20,11 +20,24 @@ config's window) and the ssm ``("mlstm", "mlstm", "slstm")``
 (k, v, idx); a recurrent block's is its state (h and conv; C, n and m;
 c, n and m), which has no position.
 
+The encoder-decoder family (whisper-small) adds ``params["enc"]``: a
+stack of non-causal encoder layers over the stub frontend's frames
+(``_run_encoder``, roped from position 0) and, for every decoder layer,
+a cross block (``enc.cross``: norm, then attention whose k and v are
+the encoder output's projections), applied after the layer's
+self-attention and MLP, as the reference orders it.  The decode state
+carries the encoder output (``enc_out``), and every step projects its k
+and v again.  The VLM family (internvl2-76b) projects the stub
+frontend's patches (``frontend_proj``) and prepends them to the tokens
+in ``forward_train``; its serve is the dense decode path, with no
+prefix.
+
 API:
   init_params(generator, cfg, device)              -> params
   forward_train(params, batch, cfg, qcfg, remat)   -> (loss, metrics)
   forward_decode(params, state, tokens, cfg, qcfg) -> (logits, state)
-  init_decode_state(cfg, batch, s_max, device, per_slot) -> state
+  init_decode_state(cfg, batch, s_max, device, per_slot, enc_out) -> state
+  _run_encoder(params, frontend, cfg, qcfg)        -> enc_out
 """
 from __future__ import annotations
 
@@ -37,7 +50,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from ..configs import ArchConfig
 from ..device import resolve
-from ..quant import QuantConfig
+from ..quant import QuantConfig, qdot
 from ..quant.linear import QuantizedWeight, get_observer
 from . import layers
 from . import moe as moe_mod
@@ -46,7 +59,8 @@ from . import recurrent
 # (family, pattern) pairs the port serves and trains
 PORTED = {("dense", ("attn",)), ("moe", ("moe",)),
           ("hybrid", ("rec", "rec", "attn")),
-          ("ssm", ("mlstm", "mlstm", "slstm"))}
+          ("ssm", ("mlstm", "mlstm", "slstm")),
+          ("encdec", ("attn",)), ("vlm", ("attn",))}
 # block kinds whose decode state is a KV cache
 ATTENTION_KINDS = ("attn", "moe")
 
@@ -82,8 +96,7 @@ def _block_init(generator, cfg: ArchConfig, kind: str, dense, ones, dev):
                           cfg.hd, cfg.d_ff)
     unit = {"norm1": ones(L, D)}
     if kind in ATTENTION_KINDS:
-        unit["attn"] = {"wq": dense(D, H * hd), "wk": dense(D, Kv * hd),
-                        "wv": dense(D, Kv * hd), "wo": dense(H * hd, D)}
+        unit["attn"] = _attn_init(dense, D, H, Kv, hd)
         if cfg.qk_norm:
             unit["attn"]["q_norm"] = ones(L, hd)
             unit["attn"]["k_norm"] = ones(L, hd)
@@ -113,26 +126,59 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     kernels N(0, 1/in_dim), embedding N(0, 0.02^2), norm gains 1, the
     recurrent blocks' own (models.recurrent).  Drawn on ``generator``'s
     device, then moved to ``device``.  One stacked unit per pattern slot;
-    a moe layer's block is attention plus models.moe.moe_init's params."""
+    a moe layer's block is attention plus models.moe.moe_init's params.
+    The encdec family adds ``enc`` (``_init_encoder``), a frontend wider
+    or narrower than d_model adds ``frontend_proj`` (frontend_dim,
+    d_model)."""
     _check_ported(cfg)
     dev = resolve(device)
     gdev = generator.device
-    L = cfg.n_units
 
-    def dense(in_dim, out_dim):
-        w = torch.randn((L, in_dim, out_dim), generator=generator,
+    def dense_n(L, in_dim, out_dim):
+        w = torch.randn((*L, in_dim, out_dim), generator=generator,
                         device=gdev) * (1.0 / math.sqrt(in_dim))
         return w.to(dev)
 
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
-    units = [_block_init(generator, cfg, kind, dense, ones, dev)
+    units = [_block_init(generator, cfg, kind,
+                         functools.partial(dense_n, (cfg.n_units,)), ones,
+                         dev)
              for kind in cfg.pattern]
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
                         device=gdev) * 0.02
-    return {"embed": embed.to(dev), "final_norm": ones(cfg.d_model),
-            "units": units}
+    params = {"embed": embed.to(dev), "final_norm": ones(cfg.d_model),
+              "units": units}
+    if cfg.family == "encdec":
+        params["enc"] = _init_encoder(cfg, dense_n, ones)
+    if cfg.frontend_dim and cfg.frontend_dim != cfg.d_model:
+        params["frontend_proj"] = dense_n((), cfg.frontend_dim, cfg.d_model)
+    return params
+
+
+def _attn_init(dense, D, H, Kv, hd):
+    return {"wq": dense(D, H * hd), "wk": dense(D, Kv * hd),
+            "wv": dense(D, Kv * hd), "wo": dense(H * hd, D)}
+
+
+def _init_encoder(cfg: ArchConfig, dense_n, ones) -> Dict:
+    """The encoder's params, as the reference's ``_init_encoder`` builds
+    them: ``layers``, a stack over enc_layers of norm1, attention (wq, wk,
+    wv, wo; no qk-norm), norm2 and the MLP; ``norm``; and ``cross``, a
+    stack over all n_layers decoder layers of a norm and an attention."""
+    E, L, D = cfg.enc_layers, cfg.n_layers, cfg.d_model
+    H, Kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    enc_dense = functools.partial(dense_n, (E,))
+    cross_dense = functools.partial(dense_n, (L,))
+    return {"layers": {"norm1": ones(E, D),
+                       "attn": _attn_init(enc_dense, D, H, Kv, hd),
+                       "norm2": ones(E, D),
+                       "mlp": _mlp_init(enc_dense, D, cfg.d_ff,
+                                        cfg.mlp_kind)},
+            "norm": ones(D),
+            "cross": {"norm": ones(L, D),
+                      "attn": _attn_init(cross_dense, D, H, Kv, hd)}}
 
 
 def take_layer(tree, i: int):
@@ -186,14 +232,37 @@ def _block_apply(p, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
     return x, new_cache, aux
 
 
+def _cross_block(xp, x, cross_ctx, cfg: ArchConfig, qcfg: QuantConfig):
+    """A decoder layer's cross block: rmsnorm, then attention of x's
+    queries over the encoder output, whose k and v this call projects
+    (wk, wv) again, and the residual.  No rope, no cache, no mask."""
+    hc = layers.rmsnorm(x, xp["norm"])
+    ap = xp["attn"]
+    ck = layers._split_heads(qdot(cross_ctx, ap["wk"], qcfg), cfg.n_kv,
+                             cfg.hd)
+    cv = layers._split_heads(qdot(cross_ctx, ap["wv"], qcfg), cfg.n_kv,
+                             cfg.hd)
+    att, _ = layers.attention(ap, hc, None, qcfg, n_heads=cfg.n_heads,
+                              n_kv=cfg.n_kv, head_dim=cfg.hd, causal=False,
+                              cross_kv=(ck, cv), rope_theta=0.0)
+    return x + att
+
+
+def _has_cross(cfg: ArchConfig, kind: str, cross_ctx) -> bool:
+    return cross_ctx is not None and kind == "attn" \
+        and cfg.family == "encdec"
+
+
 def _decoder_stack(params, x, positions, cfg: ArchConfig,
-                   qcfg: QuantConfig, caches=None):
+                   qcfg: QuantConfig, caches=None, cross_ctx=None):
     """Loop the stacked layers, slot by slot. caches: list per pattern
     slot of stacked (n_units, ...) cache or state trees, updated in place
     (an attention cache appended to, a recurrent state overwritten with
-    the layer's final state).  Returns (x, new_caches, aux summed over
-    the layers); an attention slot's idx advances by the tokens, a
-    recurrent slot has none."""
+    the layer's final state).  cross_ctx: the encoder output (B, S_enc,
+    D) of an encdec model: each layer's cross block follows it, under
+    the layer's observer index (sites ``enc.cross.attn.wk@i``).  Returns
+    (x, new_caches, aux summed over the layers); an attention slot's idx
+    advances by the tokens, a recurrent slot has none."""
     _check_ported(cfg)
     new_caches = []
     aux_total = 0.0
@@ -201,6 +270,7 @@ def _decoder_stack(params, x, positions, cfg: ArchConfig,
     for slot, kind in enumerate(cfg.pattern):
         slot_params = params["units"][slot]
         sc = caches[slot] if caches is not None else None
+        has_cross = _has_cross(cfg, kind, cross_ctx)
         for i in range(cfg.n_units):
             lp = take_layer(slot_params, i)
             cache_l = None if sc is None else {k: v[i] for k, v in sc.items()}
@@ -209,6 +279,9 @@ def _decoder_stack(params, x, positions, cfg: ArchConfig,
             try:
                 x, nc, a = _block_apply(lp, x, positions, cfg, qcfg, kind,
                                         cache=cache_l)
+                if has_cross:
+                    x = _cross_block(take_layer(params["enc"]["cross"], i),
+                                     x, cross_ctx, cfg, qcfg)
             finally:
                 if obs is not None:
                     obs.pop()
@@ -238,21 +311,28 @@ def _unstack(tree, n: int):
 
 
 def _train_stack(params, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
-                 remat: bool):
+                 remat: bool, cross_ctx=None):
     """The decoder layers of a training forward.  With ``remat`` each
-    layer runs inside torch.utils.checkpoint (non-reentrant), so its
-    activations are recomputed in the backward pass, as jax.checkpoint
-    does under the reference's remat_scope; the dynamic quantizers are
-    deterministic, so the recompute reproduces every quantized
-    operand.  An active calibration observer gets each layer's index,
-    as in _decoder_stack.  Returns (x, aux summed over the layers)."""
+    layer (its cross block included) runs inside torch.utils.checkpoint
+    (non-reentrant), so its activations are recomputed in the backward
+    pass, as jax.checkpoint does under the reference's remat_scope; the
+    dynamic quantizers are deterministic, so the recompute reproduces
+    every quantized operand.  An active calibration observer gets each
+    layer's index, as in _decoder_stack.  Returns (x, aux summed over
+    the layers)."""
     _check_ported(cfg)
     obs = get_observer()
     aux_total = 0.0
 
     for slot, kind in enumerate(cfg.pattern):
-        def layer(lp, h, kind=kind):
+        has_cross = _has_cross(cfg, kind, cross_ctx)
+        crosses = (_unstack(params["enc"]["cross"], cfg.n_units)
+                   if has_cross else [None] * cfg.n_units)
+
+        def layer(lp, xp, h, ctx, kind=kind):
             out, _, a = _block_apply(lp, h, positions, cfg, qcfg, kind)
+            if xp is not None:
+                out = _cross_block(xp, out, ctx, cfg, qcfg)
             return out, a
 
         for i, lp in enumerate(_unstack(params["units"][slot],
@@ -260,32 +340,82 @@ def _train_stack(params, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
             if obs is not None:
                 obs.push(i)
                 try:
-                    x, a = layer(lp, x)
+                    x, a = layer(lp, crosses[i], x, cross_ctx)
                 finally:
                     obs.pop()
             elif remat:
                 # the layer draws no random numbers: no RNG state to keep
                 x, a = torch_checkpoint.checkpoint(
-                    functools.partial(layer, lp), x, use_reentrant=False,
-                    preserve_rng_state=False)
+                    functools.partial(layer, lp, crosses[i]), x, cross_ctx,
+                    use_reentrant=False, preserve_rng_state=False)
             else:
-                x, a = layer(lp, x)
+                x, a = layer(lp, crosses[i], x, cross_ctx)
             aux_total = aux_total + a
     return x, aux_total
 
 
+def _run_encoder(params, frontend, cfg: ArchConfig, qcfg: QuantConfig):
+    """The encoder over the stub frontend's embeddings, frontend (B,
+    S_enc, frontend_dim or d_model) float32: the optional frontend_proj,
+    then per layer rmsnorm -> non-causal self-attention roped from
+    position 0 (rope_theta 10,000, the attention's default, as the
+    reference has it) -> residual -> rmsnorm -> MLP -> residual, each
+    layer's index pushed on an active observer (sites
+    ``enc.layers.attn.wq@i``); a final rmsnorm.  Returns (B, S_enc, D)."""
+    x = frontend
+    if "frontend_proj" in params:
+        x = qdot(x, params["frontend_proj"], qcfg)
+    enc = params["enc"]
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    obs = get_observer()
+    for i in range(cfg.enc_layers):
+        lp = take_layer(enc["layers"], i)
+        if obs is not None:
+            obs.push(i)
+        try:
+            h = layers.rmsnorm(x, lp["norm1"])
+            att, _ = layers.attention(lp["attn"], h, pos, qcfg,
+                                      n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                                      head_dim=cfg.hd, causal=False)
+            x = x + att
+            x = x + layers.mlp(lp["mlp"], layers.rmsnorm(x, lp["norm2"]),
+                               qcfg, cfg.mlp_kind)
+        finally:
+            if obs is not None:
+                obs.pop()
+    return layers.rmsnorm(x, enc["norm"])
+
+
 def forward_train(params, batch, cfg: ArchConfig, qcfg: QuantConfig,
                   remat: bool = False):
-    """batch: tokens (B, S), labels (B, S), optional mask (B, S).
-    Returns (loss, metrics) with metrics loss (the masked mean NLL plus
-    0.01 aux), aux (the MoE load-balancing term summed over the layers, 0
-    for the dense family) and ppl_proxy = exp(min(loss, 20))."""
+    """batch: tokens (B, S), labels (B, S), optional mask (B, S), and for
+    the encdec and vlm families the stub frontend's embeddings
+    ``frontend``: encdec runs the encoder over them and every decoder
+    layer's cross block over its output; vlm projects them
+    (frontend_proj) and prepends them to the tokens, positions running
+    over prefix + S, and keeps the last S rows for the loss.  Returns
+    (loss, metrics) with metrics loss (the masked mean NLL plus 0.01
+    aux), aux (the MoE load-balancing term summed over the layers, 0
+    for the other families) and ppl_proxy = exp(min(loss, 20))."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = layers.embed(params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    x, aux = _train_stack(params, x, positions, cfg, qcfg, remat)
+    cross_ctx = None
+    if cfg.family == "encdec":
+        cross_ctx = _run_encoder(params, batch["frontend"], cfg, qcfg)
+    if cfg.family == "vlm":
+        prefix = batch["frontend"]
+        if "frontend_proj" in params:
+            prefix = qdot(prefix, params["frontend_proj"], qcfg)
+        x = torch.cat([prefix.to(x.dtype), x], 1)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+    x, aux = _train_stack(params, x, positions, cfg, qcfg, remat,
+                          cross_ctx=cross_ctx)
     x = layers.rmsnorm(x, params["final_norm"])
+    if cfg.family == "vlm":
+        x = x[:, -S:]
     logits = layers.unembed(params["embed"], x, qcfg)
     logp = torch.log_softmax(logits.float(), -1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
@@ -305,23 +435,27 @@ def forward_decode(params, state, tokens, cfg: ArchConfig,
     S > 1 run the whole block causally against the fresh KV region in
     one pass (every qdot sees M = B*S rows).  ``state`` (from
     init_decode_state) has its caches appended to in place and is handed
-    back with the new positions."""
+    back with the new positions.  An encdec state's ``enc_out`` feeds
+    every layer's cross block."""
     x = layers.embed(params["embed"], tokens)
     x, new_caches, _ = _decoder_stack(params, x, None, cfg, qcfg,
-                                      caches=state["caches"])
+                                      caches=state["caches"],
+                                      cross_ctx=state.get("enc_out"))
     x = layers.rmsnorm(x, params["final_norm"])
     logits = layers.unembed(params["embed"], x, qcfg)
     return logits, dict(state, caches=new_caches)
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, s_max: int,
-                      device="cuda", per_slot: bool = False) -> Dict:
+                      device="cuda", per_slot: bool = False,
+                      enc_out=None) -> Dict:
     """Each pattern slot's zeroed decode state, stacked over its layers:
     an attention slot's bf16 KV cache, k/v (n_units, B, s_max, n_kv, hd)
     and idx (n_units,), or with ``per_slot`` idx (n_units, B), each slot
     at its own depth (continuous batching: launch.serve --continuous); a
     recurrent slot's float32 state (n_units, B, ...): h and conv (rec),
-    C, n and m (mlstm), c, n and m (slstm)."""
+    C, n and m (mlstm), c, n and m (slstm).  ``enc_out``: an encdec
+    model's encoder output (B, S_enc, D), kept as ``state["enc_out"]``."""
     _check_ported(cfg)
     dev = resolve(device)
     caches = []
@@ -340,4 +474,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, s_max: int,
         caches.append({k: torch.zeros((cfg.n_units, *v.shape),
                                       dtype=v.dtype, device=dev)
                        for k, v in one.items()})
-    return {"caches": caches}
+    state = {"caches": caches}
+    if enc_out is not None:
+        state["enc_out"] = enc_out
+    return state

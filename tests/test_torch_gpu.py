@@ -910,3 +910,79 @@ def test_smoke_new_families_serve_matches_cpu_launch_by_launch(cuda, arch):
     assert (sh.stats["decode_attention"]["calls"] > 0) == (
         arch != "xlstm-125m")
     assert r.out.shape == (2, 4)
+
+
+@pytest.mark.parametrize("signed", MODES)
+@pytest.mark.parametrize("N", [768, 3072])
+def test_fused_kernel_at_whisper_encoder_rows(cuda, signed, N):
+    """whisper-small's encoder and cross k/v projections over its 1,500
+    frames: M = 6,000 rows (a ragged last tile), K = 768."""
+    check.check_fused(check.fused_case(6000, 768, N, signed, N + signed,
+                                       cuda))
+
+
+@pytest.mark.parametrize("S,pos", [(80, [64, 70, 75, 79]),
+                                   (66, [0, 1, 33, 65]),
+                                   (448, [0, 200, 446, 447])])
+def test_attention_kernel_at_whisper_heads(cuda, S, pos):
+    """12 query heads over 12 kv heads of 64 (group 1), rope, no
+    qk-norm: whisper's decoder self-attention at the serve and
+    calibration positions and at the ends of its 448 positions; the step
+    and the append."""
+    case = check.attention_case(4, S, 12, 12, 64, S, cuda, qk_norm=False,
+                                pos=pos)
+    check.check_attention(case)
+    check.check_attention_append(case)
+
+
+@pytest.mark.parametrize("signed", MODES)
+def test_lut_kernel_at_the_vlm_prefix_projection(cuda, signed):
+    """internvl2-76b's prefix projection: 2 x 256 patches, K = 3,200,
+    N = 8,192, as the 'xla' backend passes the operands."""
+    check.check_lut(check.lut_case(512, 3200, 8192, signed, 3 + signed,
+                                   cuda, shifted=False))
+
+
+def test_smoke_whisper_serve_matches_cpu_launch_by_launch(cuda):
+    """serve --calibrate 1 of whisper-small at smoke size on the card: the
+    encoder, the cross blocks and every other launch held against its
+    plain version on the CPU."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "whisper-small", "--smoke", "--requests", "2",
+            "--prompt-len", "4", "--gen-len", "4", "--calibrate", "1"]
+    with check.CpuShadow() as sh:
+        r = serve.run(serve.build_parser().parse_args(argv))
+    assert all(st["calls"] > 0 for st in sh.stats.values()), sh.stats
+    assert r.out.shape == (2, 4) and r.t_encode > 0
+
+
+def test_smoke_vlm_forward_train_matches_cpu_launch_by_launch(cuda):
+    """internvl2-76b's forward_train at smoke size on the card ('xla'):
+    the prefix projection and every layer's projections held against the
+    plain version on the CPU (the free-running loss is printed beside
+    the CPU's: the card's fused rmsnorm may flip a dynamic step)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    cfg = configs.get_smoke("internvl2-76b")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    batch = configs.make_smoke_batch(cfg, 2, 8, seed=1)
+    q = QuantConfig(design="design2", backend="xla", mode="asym_u8")
+
+    def on(dev, tree):
+        if isinstance(tree, dict):
+            return {k: on(dev, v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [on(dev, v) for v in tree]
+        return torch.as_tensor(tree).to(dev)
+    with torch.no_grad():
+        want, _ = T.forward_train(on("cpu", params), on("cpu", batch), cfg,
+                                  q)
+        with check.CpuShadow(("lut_matmul",)) as sh:
+            got, _ = T.forward_train(on(cuda, params), on(cuda, batch), cfg,
+                                     q)
+    print(f"\ninternvl2 smoke forward_train: card loss {float(got)!r}, "
+          f"CPU loss {float(want)!r}")
+    assert sh.stats["lut_matmul"]["calls"] == 1 + 7 * cfg.n_layers
+    assert bool(torch.isfinite(got))

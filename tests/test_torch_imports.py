@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import repro_torch
+from repro_torch import configs as tconfigs
 
 SRC = os.path.dirname(os.path.dirname(os.path.abspath(repro_torch.__file__)))
 
@@ -29,7 +30,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
               "configs.llama4_scout_17b_a16e", "models.recurrent",
               "configs.gemma_7b", "configs.minitron_8b",
               "configs.nemotron_4_340b", "configs.recurrentgemma_2b",
-              "configs.xlstm_125m"):
+              "configs.xlstm_125m", "configs.whisper_small",
+              "configs.internvl2_76b"):
         assert "repro_torch." + m in mods
     code = (
         "import importlib, json, sys\n"
@@ -43,3 +45,17 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
                          capture_output=True, timeout=300, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_serves_every_config_of_the_reference():
+    """configs.ARCHS lists every config the JAX package has (the
+    reference's registry read as its source text: importing it would
+    pull jax into this process)."""
+    import ast
+    path = os.path.join(SRC, "repro", "configs", "__init__.py")
+    tree = ast.parse(open(path).read())
+    ref = next(ast.literal_eval(n.value) for n in tree.body
+               if isinstance(n, ast.Assign)
+               and any(getattr(t, "id", None) == "ARCHS" for t in n.targets))
+    assert sorted(tconfigs.ARCHS) == sorted(ref)
+    assert len(tconfigs.ARCHS) == len(set(tconfigs.ARCHS))

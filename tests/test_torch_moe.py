@@ -171,11 +171,11 @@ def test_params_carry_across_with_the_moe_tree(bases):
 
 @pytest.mark.parametrize("name", ["qwen3-1.7b"] + ARCHS + [
     "gemma-7b", "minitron-8b", "nemotron-4-340b", "recurrentgemma-2b",
-    "xlstm-125m"])
+    "xlstm-125m", "whisper-small", "internvl2-76b"])
 def test_param_counts_match_reference(name):
     """Every ported config's CONFIG and SMOKE as the reference has them,
     listed in configs.ARCHS, with the reference's parameter counts (the
-    rec / mlstm / slstm terms included)."""
+    rec / mlstm / slstm terms and the encoder's included)."""
     assert tconfigs.canon(name) in tconfigs.ARCHS
     for get in ("get", "get_smoke"):
         t, r = getattr(tconfigs, get)(name), getattr(rconfigs, get)(name)

@@ -526,6 +526,18 @@ def test_launcher_trains_and_restarts(tmp_path):
     assert np.isfinite(res.losses[0]) and np.isfinite(res.grad_norms[0])
 
 
+def test_launcher_trains_a_config_it_is_given():
+    """run(args, cfg=...) trains that config (a depth cut of --arch's, as
+    chip_smoke.py's phase 6 runs it) in place of --arch's own."""
+    import dataclasses
+    cfg = dataclasses.replace(tconfigs.get_smoke("qwen3-1.7b"), n_layers=1)
+    res = tlaunch.run(tlaunch.parse_args(
+        ["--smoke", "--device", "cpu", "--seq", "8", "--batch", "2",
+         "--steps", "1"]), cfg=cfg)
+    assert tuple(res.params["units"][0]["attn"]["wq"].shape)[0] == 1
+    assert np.isfinite(res.losses[0])
+
+
 # --plan is ported (tests/test_torch_plan.py); with --mesh beside it the
 # launcher still refuses, before it reads the plan
 @pytest.mark.parametrize("flag", [["--plan", "plan.json", "--mesh", "host"],
