@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and design-plan paths,
 the options of launch.serve, the MoE family, the other decoder-only
-families, the encoder-decoder and the VLM, on one NVIDIA card and check
-them.
+families, the encoder-decoder and the VLM, and the paper's own
+applications, tables and examples on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -64,7 +64,7 @@ error and carries on:
                --design initial asym_u8 uncalibrated ('delta') and
                calibrated ('fused'), held launch by launch
   6. train     full-width qwen3-1.7b QAT through repro_torch.launch.train
-               at 14 of its 28 layers (TRAIN_LAYERS), --batch 4 --seq 128
+               at 7 of its 28 layers (TRAIN_LAYERS), --batch 4 --seq 128
                (M=512 rows per projection), remat on, 2 steps each of
                --backend xla and residual in asym_u8 and
                sym_i8 (one run with --compress-grads, one with
@@ -148,8 +148,9 @@ error and carries on:
  14. families  gemma-7b at 4 of 28 layers, minitron-8b at 4 of 32,
                nemotron-4-340b at 1 of 96 (the float32 master weights of
                more layers do not fit beside their int8 copies and the
-               prequantizer's temporaries), recurrentgemma-2b (27 layers)
-               and xlstm-125m (12) whole, every width as published:
+               prequantizer's temporaries), recurrentgemma-2b at 9 of 27
+               (3 pattern units; cut for the script's time) and
+               xlstm-125m (12) whole, every width as published:
                serve's prepare and run, --calibrate 1, 4 requests, prompt
                64, gen 16, asym_u8 and sym_i8, launch counts held to the
                path's (family_per_model); then one pattern unit of each
@@ -171,12 +172,28 @@ error and carries on:
                served calibrated in both modes, and one layer of
                internvl2's forward_train with its 256-patch prefix
                (asym_u8), every launch held against its plain version
+ 16. applications  the paper's evaluation (repro_torch.app), each card
+               result held equal to the same call on the CPU: (a) blur and
+               sharpen of the 6 synthetic images for the 7 designs of
+               Table 5 and its companions; (b) Sobel gradients and edge
+               maps through the 4 signed designs of table_edge_detection;
+               (c) the rows of the tables that run on the card
+               (app.tables.DEVICE_TABLES; the other nine are numpy on the
+               host, held to the reference by the CPU tests); (d) one
+               3840 x 2160 frame sharpened per design, the median of 5
+               after a warm-up printed beside nvidia-smi's name and power
+               limit; (e)
+               examples/quickstart_torch.py (lut_matmul held against its
+               plain version), image_sharpening_torch.py and
+               train_approx_lm_torch.py --steps 5 on the card.  Its
+               launches are logged apart and join no count of the JSON
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -200,10 +217,11 @@ TRAIN_RUNS = [("xla", "asym_u8", ["--compress-grads"]),
 CKPT_RUN = ("residual", "sym_i8")          # saves its state: --ckpt-dir
 # depth cuts that keep the script inside its time limit: phase 6 trains
 # TRAIN_LAYERS of qwen3's 28 layers (every shape of the path; the
-# checkpoint round trip of the full depth took 80 s of its 107), phases 5,
-# 7 and 12 hold PARITY_LAYERS layers launch by launch (phase 11 keeps 2:
-# its plan differs between odd and even layers)
-TRAIN_LAYERS = 14
+# checkpoint round trip of the full depth took 80 s of its 107; at 14
+# layers phase 6 took 70.5 s, and the whole script 1,209.2 s, on a slow
+# H100 host), phases 5, 7 and 12 hold PARITY_LAYERS layers launch by
+# launch (phase 11 keeps 2: its plan differs between odd and even layers)
+TRAIN_LAYERS = 7
 PARITY_LAYERS = 1
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 RANK = 32                        # QuantConfig.rank, the launcher's default
@@ -222,10 +240,11 @@ MOE_CARD_GATHERS = 1 << 24
 # master weights fit beside their int8 copies and the prequantizer's
 # temporaries (gemma-7b 1.1 GB a layer and a 3.1 GB embedding,
 # minitron-8b 0.7 GB and 4.2 GB, nemotron-4-340b 13.8 GB and 18.9 GB);
-# the recurrent ones at full depth (recurrentgemma-2b about 11 GB); one
-# pattern unit holds every block kind and kernel shape
+# xlstm-125m whole; recurrentgemma-2b at 3 of its 9 pattern units, for
+# the script's time (its whole depth took 39 s of calibration on a slow
+# H100 host); one pattern unit holds every block kind and kernel shape
 FAMILY_RUNS = (("gemma-7b", 4), ("minitron-8b", 4), ("nemotron-4-340b", 1),
-               ("recurrentgemma-2b", 27), ("xlstm-125m", 12))
+               ("recurrentgemma-2b", 9), ("xlstm-125m", 12))
 # H100 SXM data-sheet rates
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
@@ -2926,6 +2945,138 @@ def trace_decode(cfg, steps: int = 4):
             by_name.items(), key=lambda kv: -kv[1][1])}))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the paper's applications, its tables and the examples
+# ---------------------------------------------------------------------------
+
+# Table 5's designs (sharpening, unsigned) and table_edge_detection's
+# (Sobel, signed)
+APP_SHARPEN = ("exact", "design1", "design2", "initial", "momeni15",
+               "sabetzadeh14", "venkatachalam16")
+APP_EDGES = ("design1", "design2", "design1_trunc4", "bw_design1")
+# one 3840 x 2160 frame: the size of frame a user of a sharpening filter
+# runs
+APP_FRAME = (2160, 3840)
+APP_REPS = 5
+EXAMPLES = (("quickstart_torch.py", []),
+            ("image_sharpening_torch.py", []),
+            ("train_approx_lm_torch.py", ["--steps", "5"]))
+
+
+def _example(fname: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        fname[:-3], os.path.join(HERE, "examples", fname))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def applications(smi: str) -> None:
+    """(a) blur and sharpen of the synthetic set per Table 5 design, (b)
+    Sobel gradients and edge maps per signed design, (c) the rows of the
+    tables that run on the card, each on the card and held equal to the same call on the CPU; (d) one
+    3840 x 2160 frame sharpened per design, timed, held to the CPU once;
+    (e) the three torch examples on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.app import edge_detection as ed
+    from repro_torch.app import sharpening as sh
+    from repro_torch.app import tables
+    from repro_torch.kernels import check, ops
+    dev = torch.device("cuda")
+    secs = {}
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    imgs = sh.make_test_images()
+    for d in APP_SHARPEN:
+        for img in imgs:
+            for fn in (sh.blur, sh.sharpen):
+                got = fn(img, d, dev)
+                assert got.is_cuda and torch.equal(got.cpu(),
+                                                   fn(img, d, "cpu")), \
+                    f"{fn.__name__} {d}: card != CPU"
+    secs["a"] = time.perf_counter() - t0
+    log(f"[apps] (a) blur and sharpen of {len(imgs)} images x "
+        f"{len(APP_SHARPEN)} designs: card == CPU")
+
+    t0 = time.perf_counter()
+    for d in APP_EDGES:
+        for img in imgs:
+            for got, want in zip(ed.gradients(img, d, dev),
+                                 ed.gradients(img, d, "cpu")):
+                assert got.is_cuda and torch.equal(got.cpu(), want), d
+            got = ed.edge_map(img, d, device=dev)
+            assert torch.equal(got.cpu(), ed.edge_map(img, d, device="cpu")), d
+    secs["b"] = time.perf_counter() - t0
+    log(f"[apps] (b) Sobel gradients and edge maps of {len(imgs)} images x "
+        f"{len(APP_EDGES)} signed designs: card == CPU")
+
+    t0 = time.perf_counter()
+    for name in tables.DEVICE_TABLES:
+        got = tables.rows(name, dev)
+        assert got == tables.rows(name, "cpu"), f"{name}: card != CPU"
+        log(f"[apps] (c) {name} on the card: " + json.dumps(got))
+    secs["c"] = time.perf_counter() - t0
+    log(f"[apps] (c) the rows of {len(tables.DEVICE_TABLES)} tables: card "
+        f"== CPU")
+
+    t0 = time.perf_counter()
+    frame = sh.make_test_images(1, size=APP_FRAME)[0]
+    x = torch.from_numpy(frame).to(dev)
+    frame_ms, device_ms, cpu_ms = {}, {}, {}
+    for d in APP_SHARPEN:
+        sh.sharpen(x, d, dev)                        # warm-up
+        ts = []
+        for _ in range(APP_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = sh.sharpen(x, d, dev)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        frame_ms[d] = float(np.median(ts))
+        device_ms[d] = check.cuda_time(
+            functools.partial(sh.sharpen, x, d, dev), APP_REPS, warmup=0,
+            queued=True)
+        t = time.perf_counter()
+        want = sh.sharpen(frame, d, "cpu")
+        cpu_ms[d] = (time.perf_counter() - t) * 1e3
+        assert torch.equal(got.cpu(), want), f"{d}: 3840 x 2160 card != CPU"
+    secs["d"] = time.perf_counter() - t0
+    # the least a frame could take: its bytes (uint8 in, uint8 out) at the
+    # card's memory rate
+    bound_ms = 2 * frame.size / HBM_BPS * 1e3
+    log(f"[apps] (d) sharpen of one {APP_FRAME[1]} x {APP_FRAME[0]} frame "
+        f"on the card, ms (median of {APP_REPS} after a warm-up, host clock "
+        f"to a synchronize): {json.dumps(frame_ms)}; device ms (CUDA "
+        f"events, {APP_REPS} calls queued behind a spin): "
+        f"{json.dumps(device_ms)}; bound {bound_ms!r} ms (bytes); the same "
+        f"on the CPU once, ms: {json.dumps(cpu_ms)}; card == CPU; {smi}")
+
+    t0 = time.perf_counter()
+    counts = {}
+    for fname, extra in EXAMPLES:
+        ops.reset_launches()
+        log(f"[apps] (e) examples/{fname} {' '.join(extra)}")
+        out = _example(fname).main(["--device", "cuda"] + extra)
+        counts[fname] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        if fname == "quickstart_torch.py":
+            assert out == 0, f"lut_matmul != its plain version: {out}"
+            assert counts[fname].get("lut_matmul") == 1, counts[fname]
+        elif fname == "image_sharpening_torch.py":
+            want = sh.sharpen(imgs[0], "design2", "cpu").numpy()
+            assert np.array_equal(np.load(out), want), out
+        else:
+            assert all(np.isfinite(v) for v in out), out
+            assert counts[fname].get("lut_matmul", 0) > 0, counts[fname]
+    secs["e"] = time.perf_counter() - t0
+    log(f"[apps] (e) kernel launches per example: {json.dumps(counts)}")
+    secs["all"] = time.perf_counter() - t_phase
+    log("[apps] phase 16 seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("1. device")
@@ -3028,12 +3179,16 @@ def main() -> int:
         phase("15. encoder-decoder and VLM at full width")
         ev_launches, ev_serve = {}, {}
         ev_launches["whisper-small"], table = whisper_full_width(ev_serve)
-        more = whisper_long_encoder(table, ev_serve)
-        for k in more:
-            ev_launches["whisper-small"][k] += more[k]
+        long_enc = whisper_long_encoder(table, ev_serve)
+        for k in long_enc:
+            ev_launches["whisper-small"][k] += long_enc[k]
         ev_launches["internvl2-76b"] = vlm_full_width(ev_serve)
         log("[encdec/vlm] " + json.dumps({"encdec_vlm": ev_serve}))
         encdec_vlm_parity_one_unit()
+    # the training example needs autograd: outside the no_grad block
+    phase("16. applications: sharpening, edge detection, the tables and "
+          "the examples")
+    applications(smi)
     # the plan runs' launches join the paths' counts, but for the planned
     # QAT steps' delta_matmul launches (M = TB*TS), which stand apart
     # beside their own timing row

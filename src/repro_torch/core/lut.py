@@ -9,7 +9,7 @@ the sum is bit-exact against the gate level by construction.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -77,6 +77,18 @@ def build_delta_lut(name: str, signed: bool = False) -> np.ndarray:
     return d
 
 
+def delta_fits_int16(name: str, signed: bool = False) -> bool:
+    """Whether the design's delta table packs into int16 (all paper
+    designs do; see build_delta_lut)."""
+    return build_delta_lut(name, signed).dtype == np.int16
+
+
+def exact_rank(name: str) -> int:
+    """Exact linear-algebra rank of the error surface over the rationals."""
+    e = error_table(name).astype(np.float64)
+    return int(np.linalg.matrix_rank(e, tol=1e-6))
+
+
 def _svd_factors(e: np.ndarray, rank: Optional[int]
                  ) -> Tuple[np.ndarray, np.ndarray, float]:
     u, s, vt = np.linalg.svd(e, full_matrices=False)
@@ -105,3 +117,21 @@ def signed_error_factors(name: str, rank: Optional[int] = None,
     """SVD factors of the SIGNED error surface; rows/cols indexed by the
     offset-shifted operand (a+128), matching build_signed_lut."""
     return _svd_factors(signed_error_table(name).astype(np.float64), rank)
+
+
+def rank_profile(name: str, tol_meds=(0.0, 0.5, 2.0, 8.0)
+                 ) -> Dict[str, object]:
+    """How fast the error surface compresses: rank needed for a given mean
+    |residual| budget (in output ULPs)."""
+    e = error_table(name).astype(np.float64)
+    u, s, vt = np.linalg.svd(e, full_matrices=False)
+    out = {"exact_rank": int((s > (s[0] if s[0] else 1) * 1e-12).sum())}
+    for tol in tol_meds:
+        lo = None
+        for r in range(0, len(s) + 1):
+            resid = u[:, :r] * s[:r] @ vt[:r] - e if r else -e
+            if np.abs(resid).mean() <= tol:
+                lo = r
+                break
+        out[f"rank@med<={tol}"] = lo
+    return out

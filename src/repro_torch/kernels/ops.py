@@ -116,6 +116,31 @@ def lut_table(design: str, signed: bool, device):
     return _LUT_CACHE[key]
 
 
+def product_table(design: str, signed: bool, device) -> torch.Tensor:
+    """The design's (256,256) int32 product table (signed: indexed [a+128,
+    b+128]) on ``device`` (cached per device): what approx_mul gathers
+    from, and the reference's app tables ``_lut_for`` / ``_slut_for``."""
+    key = ("prod_t", design, signed, str(torch.device(device)))
+    if key not in _LUT_CACHE:
+        t = get_signed_lut(design) if signed else get_lut(design)
+        _LUT_CACHE[key] = torch.from_numpy(
+            np.ascontiguousarray(t, dtype=np.int32)).to(device)
+    return _LUT_CACHE[key]
+
+
+def approx_mul(a: torch.Tensor, b: torch.Tensor, design: str = "design2",
+               signed: bool = False) -> torch.Tensor:
+    """Elementwise approximate product (the image pipelines'), int32:
+    a gather from the design's flattened product table at
+    (a+off)*256 + (b+off), off = 128 when ``signed``.  Operands broadcast
+    and take the device of ``a`` (``b`` may be a 0-dim CPU tensor, a
+    scalar to the ops).  Torch ops on every device: the reference
+    reaches no Pallas kernel here either."""
+    off = 128 if signed else 0
+    return ref.approx_mul_ref(a, b, product_table(design, signed, a.device),
+                              offset=off)
+
+
 def factor_tables(design: str, rank: int, signed: bool, device):
     """get_factors as float32 tensors on ``device`` (cached per device)."""
     key = ("factors_t", design, rank, signed, str(torch.device(device)))

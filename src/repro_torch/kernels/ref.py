@@ -46,6 +46,18 @@ def _table(dlut, device) -> torch.Tensor:
                                     dtype=torch.int32).reshape(-1)
 
 
+def approx_mul_ref(a: torch.Tensor, b: torch.Tensor, lut,
+                   offset: int = 0) -> torch.Tensor:
+    """Elementwise approximate product via the 256x256 LUT (int32).
+
+    a, b: integer tensors (broadcastable); index = value + offset must
+    land in [0, 255].  The image pipelines' product; no kernel of its
+    own (the reference's is a jnp.take too)."""
+    flat = _table(lut, a.device)
+    idx = (a.to(torch.int32) + offset) * 256 + (b.to(torch.int32) + offset)
+    return flat[idx.long()]
+
+
 # most entries one gathered (M, kb, columns) block of _delta_blocks holds
 DELTA_BLOCK_ENTRIES = 1 << 26
 

@@ -595,3 +595,15 @@ def fuse_projections(params):
     out = dict(params)
     out["units"] = visit(params["units"])
     return out
+
+
+def qeinsum_heads(x: torch.Tensor, w: torch.Tensor,
+                  cfg: QuantConfig) -> torch.Tensor:
+    """Batched per-head projection: x (..., K) @ w (H, K, D) -> (..., H, D).
+
+    Implemented as a single qdot against w reshaped to (K, H*D) so the
+    approximate product is applied uniformly.
+    """
+    H, K, D = w.shape
+    y = qdot(x, w.permute(1, 0, 2).reshape(K, H * D), cfg)
+    return y.reshape(*x.shape[:-1], H, D)

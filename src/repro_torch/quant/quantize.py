@@ -130,3 +130,19 @@ def quantize_int8(x, axis=None, eps=1e-8):
     scale = torch.clamp_min(true_div(amax, 127.0), eps)
     q = torch.clamp(torch.round(x / scale), -128, 127)
     return q.to(torch.int32), scale
+
+
+def dequantize_int8(q, scale):
+    return q.to(torch.float32) * scale
+
+
+def dequantize(q, scale, zp):
+    return (q.to(torch.float32) - zp) * scale
+
+
+def fake_quant(x, axis=None):
+    """Straight-through fake-quantization (QAT): the value of the uint8
+    round trip, the gradient of the identity."""
+    q, s, z = quantize_uint8(x, axis)
+    xq = dequantize(q, s, z)
+    return x + (xq - x).detach()

@@ -986,3 +986,60 @@ def test_smoke_vlm_forward_train_matches_cpu_launch_by_launch(cuda):
           f"CPU loss {float(want)!r}")
     assert sh.stats["lut_matmul"]["calls"] == 1 + 7 * cfg.n_layers
     assert bool(torch.isfinite(got))
+
+
+@pytest.mark.parametrize("signed,design", [(False, "design2"),
+                                           (False, "initial"),
+                                           (True, "design2"),
+                                           (True, "bw_design1")])
+def test_approx_mul_on_the_card_equals_the_cpu(cuda, signed, design):
+    """ops.approx_mul (torch ops on the device; no kernel of its own) on
+    broadcast operands, every table entry reached."""
+    lo = -128 if signed else 0
+    v = torch.arange(lo, lo + 256, dtype=torch.int32)
+    want = ops.approx_mul(v[:, None], v[None, :], design, signed)
+    got = ops.approx_mul(v[:, None].to(cuda), v[None, :].to(cuda), design,
+                         signed)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("design", ["exact", "design1", "design2",
+                                    "momeni15"])
+def test_sharpen_on_the_card_equals_the_cpu(cuda, design):
+    from repro_torch.app import sharpening as sh
+    for img in sh.make_test_images(3) + sh.make_test_images(
+            1, size=(217, 301), seed=4):
+        got = sh.sharpen(img, design, cuda)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), sh.sharpen(img, design, "cpu"))
+        exact = sh.sharpen(img, "exact", cuda)
+        assert sh.ssim(exact, got) == sh.ssim(exact.cpu(), got.cpu())
+        assert sh.psnr(exact, got) == sh.psnr(exact.cpu(), got.cpu())
+
+
+@pytest.mark.parametrize("design", ["design1", "design2", "design1_trunc4",
+                                    "bw_design1"])
+def test_gradients_on_the_card_equal_the_cpu(cuda, design):
+    from repro_torch.app import edge_detection as ed
+    from repro_torch.app.sharpening import make_test_images
+    for img in make_test_images(3):
+        for got, want in zip(ed.gradients(img, design, cuda),
+                             ed.gradients(img, design, "cpu")):
+            assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert (ed.evaluate(design, make_test_images(3), device=cuda)
+            == ed.evaluate(design, make_test_images(3), device="cpu"))
+
+
+def test_sharpen_queues_without_holding_the_host(cuda):
+    """A 3840 x 2160 sharpen issues its ops without a host synchronize (no
+    copy of a coefficient to the card per call), so chip_smoke.py can
+    time its device work queued behind a spin (check.cuda_time)."""
+    import functools
+
+    from repro_torch.app import sharpening as sh
+    x = torch.from_numpy(sh.make_test_images(1, size=(2160, 3840))[0])
+    x = x.to(cuda)
+    for design in ("exact", "design2"):
+        ms = check.cuda_time(functools.partial(sh.sharpen, x, design, cuda),
+                             3, queued=True)
+        assert ms > 0

@@ -31,7 +31,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
               "configs.gemma_7b", "configs.minitron_8b",
               "configs.nemotron_4_340b", "configs.recurrentgemma_2b",
               "configs.xlstm_125m", "configs.whisper_small",
-              "configs.internvl2_76b"):
+              "configs.internvl2_76b", "app", "app.sharpening",
+              "app.edge_detection", "app.tables", "core.metrics"):
         assert "repro_torch." + m in mods
     code = (
         "import importlib, json, sys\n"
