@@ -4,7 +4,10 @@
 reduced same-family config for CPU tests.  ``ARCHS`` lists the configs
 this package serves: every config of the reference (the dense, MoE,
 hybrid and ssm families, the encoder-decoder whisper-small and the VLM
-internvl2-76b).
+internvl2-76b).  ``SHAPES`` is the reference's input-shape grid,
+``supported_cells(name)`` the (arch x shape) cells a config runs and
+``input_specs(cfg, shape)`` meta-tensor stand-ins for a cell's inputs
+(launch.dryrun).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 # the ported configs, one module each (dense, moe, hybrid, ssm, encdec,
 # vlm)
@@ -110,6 +114,50 @@ def get(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return importlib.import_module(f"{__name__}.{canon(name)}").SMOKE
+
+
+# shape grid: name -> (seq_len, global_batch, kind)
+SHAPES: Dict[str, tuple] = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+
+def supported_cells(name: str):
+    """The (arch x shape) cells this arch runs (long_500k needs
+    sub-quadratic mixing)."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if get(name).sub_quadratic:
+        cells.append("long_500k")
+    return cells
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins (shape and dtype, no storage) for every model
+    input of this cell, as the reference's ShapeDtypeStructs: 'train' and
+    'prefill' take the full sequence, 'decode' one new token against a
+    seq_len-deep cache or state.  whisper's sequence is clamped to its
+    positional capacity of 448 and its frontend is its 1,500 encoder
+    frames; the VLM's prefix patches come with train and prefill only."""
+    seq, batch, kind = SHAPES[shape_name]
+    if cfg.family == "encdec":
+        seq = min(seq, 448)
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs = {"tokens": spec((batch, seq if kind != "decode" else 1),
+                            torch.int32)}
+    if kind == "train":
+        specs["labels"] = spec((batch, seq), torch.int32)
+    width = cfg.frontend_dim or cfg.d_model
+    if cfg.family == "encdec":
+        specs["frontend"] = spec((batch, 1500, width), torch.float32)
+    if cfg.family == "vlm" and kind != "decode":
+        specs["frontend"] = spec((batch, cfg.n_prefix, width), torch.float32)
+    return specs
 
 
 def make_smoke_batch(cfg: ArchConfig, batch: int = 2, seq: int = 16,

@@ -665,10 +665,11 @@ class CpuShadow:
         """names: the ops wrappers to shadow (the calibrated serving
         path's three by default, ``serving(backend)`` for a served run on
         another backend, CpuShadow.TRAIN for the training kernels).
-        ``card_gathers``: a delta_matmul, fused_qdot or lut_matmul
-        launch of more than this many gathers (M*K*N) is held against its
-        plain version on the card (delta_plain, fused_plain, lut_plain),
-        not on the CPU (the vocabulary-wide unembed at prefill size, the
+        ``card_gathers``: a delta_matmul, fused_qdot, lut_matmul or
+        residual_matmul launch of more than this many gathers (M*K*N) is
+        held against its plain version on the card (delta_plain,
+        fused_plain, lut_plain, residual_corrected_matmul_ref), not on
+        the CPU (the vocabulary-wide unembed at prefill size, the
         MoE experts and internvl2's projections at full width); ``stats``
         counts those launches as ``on_card``."""
         self.names = tuple(names)
@@ -749,10 +750,16 @@ class CpuShadow:
 
     def _residual(self, a, b, F, G, offset=0):
         out = self.saved["residual_matmul"](a, b, F, G, offset)
-        want = ref.residual_corrected_matmul_ref(
-            *(_cpu(t) for t in (a, b, F, G)), offset)
-        self._note("residual_matmul", _resid_err(out.cpu(), want)
-                   ["max_abs_err"])
+        gathers = a.shape[0] * a.shape[1] * b.shape[1]
+        if self.card_gathers is not None and gathers > self.card_gathers:
+            want = ref.residual_corrected_matmul_ref(a, b, F, G, offset)
+            err = _resid_err(out, want)["max_abs_err"]
+            self.stats["residual_matmul"]["on_card"] += 1
+        else:
+            want = ref.residual_corrected_matmul_ref(
+                *(_cpu(t) for t in (a, b, F, G)), offset)
+            err = _resid_err(out.cpu(), want)["max_abs_err"]
+        self._note("residual_matmul", err)
         return out
 
     def _fused(self, x, qw, dlut, scal, ntab, comp_r, *, signed=False,

@@ -24,9 +24,16 @@ multiplier.
     index and compensation tables (make_plan_injector), so every
     projection runs forward through its layer's design on the
     delta_matmul kernel, whatever ``--backend`` says.
+  * ``--mesh host`` (the default): the step runs inside the logical
+    axis rules of the one-card (1, 1) mesh (launch.mesh.make_host_mesh,
+    models.sharding.SINGLE_POD_RULES), as the reference's host mesh: on
+    one card every axis has size 1, so the rules place nothing and the
+    losses are those of a run without them.  ``single`` and ``multi``
+    (the 16x16 and 2x16x16 production meshes, 256 and 512 devices) are
+    refused at parse time: the port runs on one card (launch.dryrun
+    analyses those meshes without devices).
 Float32 products run at full float32 precision (TF32 off), as the
-reference's HIGHEST precision.  ``--mesh`` is not ported and is
-refused.
+reference's HIGHEST precision.
 """
 from __future__ import annotations
 
@@ -41,10 +48,12 @@ from .. import configs
 from ..data import DataConfig, host_batch
 from ..device import resolve
 from ..models import transformer as T
+from ..models.sharding import SINGLE_POD_RULES, logical_axis_rules
 from ..quant import QuantConfig
 from ..train import OptConfig, make_train_step
 from ..train import checkpoint as ckpt
 from ..train import optimizer as opt_mod
+from .mesh import make_host_mesh, make_production_mesh, mesh_axis_sizes
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,8 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--mesh", default=None,
-                    help="not ported: refused")
+    ap.add_argument("--mesh", choices=["host", "single", "multi"],
+                    default="host",
+                    help="host: the one-card mesh; single / multi (256 / "
+                         "512 devices) are refused")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--straggler-factor", type=float, default=3.0)
@@ -78,8 +89,13 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh is not ported yet (the port trains on one card)")
+    if args.mesh != "host":
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi")
+        ap.error(f"--mesh {args.mesh} is not ported to one machine: it "
+                 f"needs the {'x'.join(map(str, mesh.shape))} mesh of "
+                 f"{mesh.size} devices, and this machine has "
+                 f"{torch.cuda.device_count()} CUDA card(s); the port "
+                 f"trains on one card (--mesh host)")
     return args
 
 
@@ -105,6 +121,12 @@ def run(args: argparse.Namespace, cfg=None) -> TrainResult:
     """Train as ``main`` does.  ``cfg``: the model config to train in place
     of ``--arch``'s (a depth-cut variant of it, say)."""
     dev = resolve(args.device)
+    mesh = make_host_mesh(dev)
+    with logical_axis_rules(SINGLE_POD_RULES, mesh_axis_sizes(mesh)):
+        return _train(args, cfg, dev)
+
+
+def _train(args: argparse.Namespace, cfg, dev: torch.device) -> TrainResult:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -15,6 +15,7 @@ from ..device import true_div
 from ..kernels import ops
 from ..kernels.ref import write_rows
 from ..quant import QuantConfig, qdot
+from .sharding import constrain
 
 
 def rmsnorm(x, gamma, eps: float = 1e-6):
@@ -119,6 +120,9 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
     if cross_kv is None and rope_theta:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
+    if cache is None:  # training/prefill; decode layouts follow the cache
+        q = constrain(q, "batch", None, "heads", None)
+        k = constrain(k, "batch", None, "kv", None)
 
     new_cache = None
     if cache is not None:
@@ -220,11 +224,12 @@ def mlp(p, x, qcfg: QuantConfig, kind: str):
         h = torch.square(torch.relu(qdot(x, p["w_up"], qcfg)))
     else:
         h = gelu(qdot(x, p["w_up"], qcfg))
+    h = constrain(h, "batch", None, "ffn")
     return qdot(h, p["w_down"], qcfg)
 
 
 def embed(table, tokens):
-    return table[tokens.long()]
+    return constrain(table[tokens.long()], "batch", None, "embed")
 
 
 def unembed(table, x, qcfg: QuantConfig):

@@ -21,6 +21,7 @@ from ..device import resolve
 from ..quant import QuantConfig, qdot
 from ..quant.linear import QuantizedWeight, get_observer
 from . import layers
+from .sharding import constrain
 
 
 def moe_init(generator: torch.Generator, n_layers: int, d_model: int,
@@ -34,11 +35,13 @@ def moe_init(generator: torch.Generator, n_layers: int, d_model: int,
     ``generator``'s device, then moved to ``device`` (the card unless
     asked otherwise, as every entry point: device.resolve)."""
     device = resolve(device)
-    gdev = generator.device
     L, D, E = n_layers, d_model, n_experts
 
     def normal(shape, scale):
-        w = torch.randn(shape, generator=generator, device=gdev) * scale
+        if generator is None:             # meta: the shape alone
+            return torch.empty(shape, device=device)
+        w = torch.randn(shape, generator=generator,
+                        device=generator.device) * scale
         return w.to(device)
 
     glu = kind in ("geglu", "swiglu")
@@ -140,7 +143,7 @@ def moe(p, x, qcfg: QuantConfig, *, n_experts: int, top_k: int, kind: str,
     are dropped from it.  aux is the Switch-style load-balancing term."""
     B, S, D = x.shape
     T = B * S
-    xt = x.reshape(T, D)
+    xt = constrain(x.reshape(T, D), "batch", None)
     logits = qdot(xt, p["router"], qcfg)                       # (T, E)
     probs = softmax(logits.float())
     gate_vals, gate_idx = select_top_k(probs, top_k)           # (T, k)
@@ -152,6 +155,9 @@ def moe(p, x, qcfg: QuantConfig, *, n_experts: int, top_k: int, kind: str,
     xe_src = torch.cat([xt, torch.zeros((1, D), dtype=xt.dtype,
                                         device=xt.device)], 0)
     xe = xe_src[table.long()]                                  # (E, C, D)
+    # EP over the expert axis when divisible; the capacity axis shards
+    # over data either way so the dispatch buffer never replicates
+    xe = constrain(xe, "experts", "expert_cap", None)
 
     glu = kind in ("geglu", "swiglu")
     act = _act(kind)

@@ -35,6 +35,10 @@ from . import layers
 
 
 def _normal(generator, shape, scale, device):
+    """N(0, scale^2) drawn on the generator's device, then moved to
+    ``device``; with no generator (``device`` meta) the shape alone."""
+    if generator is None:
+        return torch.empty(shape, device=device)
     w = torch.randn(shape, generator=generator, device=generator.device)
     return (w * scale).to(device)
 

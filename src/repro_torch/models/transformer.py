@@ -34,6 +34,7 @@ prefix.
 
 API:
   init_params(generator, cfg, device)              -> params
+  param_shapes(cfg)                                -> meta params
   forward_train(params, batch, cfg, qcfg, remat)   -> (loss, metrics)
   forward_decode(params, state, tokens, cfg, qcfg) -> (logits, state)
   init_decode_state(cfg, batch, s_max, device, per_slot, enc_out) -> state
@@ -43,7 +44,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.utils import checkpoint as torch_checkpoint
@@ -55,6 +56,7 @@ from ..quant.linear import QuantizedWeight, get_observer
 from . import layers
 from . import moe as moe_mod
 from . import recurrent
+from .sharding import constrain
 
 # (family, pattern) pairs the port serves and trains
 PORTED = {("dense", ("attn",)), ("moe", ("moe",)),
@@ -120,7 +122,7 @@ def _block_init(generator, cfg: ArchConfig, kind: str, dense, ones, dev):
     return unit
 
 
-def init_params(generator: torch.Generator, cfg: ArchConfig,
+def init_params(generator: Optional[torch.Generator], cfg: ArchConfig,
                 device="cuda") -> Dict:
     """Random params with the reference's shapes and init scales: dense
     kernels N(0, 1/in_dim), embedding N(0, 0.02^2), norm gains 1, the
@@ -129,12 +131,19 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     a moe layer's block is attention plus models.moe.moe_init's params.
     The encdec family adds ``enc`` (``_init_encoder``), a frontend wider
     or narrower than d_model adds ``frontend_proj`` (frontend_dim,
-    d_model)."""
+    d_model).  On ``device="meta"`` with no generator, the tree's shapes
+    and dtypes and nothing else: no value is drawn and no memory is
+    allocated (param_shapes)."""
     _check_ported(cfg)
     dev = resolve(device)
-    gdev = generator.device
+    if generator is None and dev.type != "meta":
+        raise ValueError("init_params draws from a torch.Generator; only "
+                         "device='meta' (shapes alone) takes none")
+    gdev = generator.device if generator is not None else dev
 
     def dense_n(L, in_dim, out_dim):
+        if generator is None:             # meta: no value, no op on one
+            return torch.empty((*L, in_dim, out_dim), device=dev)
         w = torch.randn((*L, in_dim, out_dim), generator=generator,
                         device=gdev) * (1.0 / math.sqrt(in_dim))
         return w.to(dev)
@@ -146,8 +155,10 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
                          functools.partial(dense_n, (cfg.n_units,)), ones,
                          dev)
              for kind in cfg.pattern]
-    embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
-                        device=gdev) * 0.02
+    embed = (torch.empty((cfg.vocab, cfg.d_model), device=dev)
+             if generator is None else
+             torch.randn((cfg.vocab, cfg.d_model), generator=generator,
+                         device=gdev) * 0.02)
     params = {"embed": embed.to(dev), "final_norm": ones(cfg.d_model),
               "units": units}
     if cfg.family == "encdec":
@@ -155,6 +166,13 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     if cfg.frontend_dim and cfg.frontend_dim != cfg.d_model:
         params["frontend_proj"] = dense_n((), cfg.frontend_dim, cfg.d_model)
     return params
+
+
+def param_shapes(cfg: ArchConfig) -> Dict:
+    """The params tree as meta tensors: the leaf paths, shapes and
+    dtypes of init_params (those of the reference's
+    jax.eval_shape(init_params)), with no weight allocated."""
+    return init_params(None, cfg, device="meta")
 
 
 def _attn_init(dense, D, H, Kv, hd):
@@ -277,8 +295,10 @@ def _decoder_stack(params, x, positions, cfg: ArchConfig,
             if obs is not None:
                 obs.push(i)
             try:
+                x = constrain(x, "batch", "seq_shard", None)
                 x, nc, a = _block_apply(lp, x, positions, cfg, qcfg, kind,
                                         cache=cache_l)
+                x = constrain(x, "batch", "seq_shard", None)
                 if has_cross:
                     x = _cross_block(take_layer(params["enc"]["cross"], i),
                                      x, cross_ctx, cfg, qcfg)
@@ -330,7 +350,9 @@ def _train_stack(params, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
                    if has_cross else [None] * cfg.n_units)
 
         def layer(lp, xp, h, ctx, kind=kind):
+            h = constrain(h, "batch", "seq_shard", None)
             out, _, a = _block_apply(lp, h, positions, cfg, qcfg, kind)
+            out = constrain(out, "batch", "seq_shard", None)
             if xp is not None:
                 out = _cross_block(xp, out, ctx, cfg, qcfg)
             return out, a
@@ -400,6 +422,7 @@ def forward_train(params, batch, cfg: ArchConfig, qcfg: QuantConfig,
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = layers.embed(params["embed"], tokens)
+    x = constrain(x, "batch", None, "embed")
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     cross_ctx = None
     if cfg.family == "encdec":
@@ -417,6 +440,7 @@ def forward_train(params, batch, cfg: ArchConfig, qcfg: QuantConfig,
     if cfg.family == "vlm":
         x = x[:, -S:]
     logits = layers.unembed(params["embed"], x, qcfg)
+    logits = constrain(logits, "batch", None, "vocab")
     logp = torch.log_softmax(logits.float(), -1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("mask")

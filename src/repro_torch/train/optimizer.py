@@ -78,7 +78,11 @@ def tree_unflatten(tree, leaves):
 
 def init(params, cfg: OptConfig) -> OptState:
     dev = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros_like(p)          # noqa: E731
+
+    def zeros(p):
+        # a factory, not zeros_like: on meta params (launch.dryrun) an op
+        # on a meta tensor first loads torch's reference decompositions
+        return torch.zeros(p.shape, dtype=p.dtype, device=p.device)
     err = tree_map(zeros, params) if cfg.compress_grads else None
     return OptState(torch.zeros((), dtype=torch.int32, device=dev),
                     tree_map(zeros, params), tree_map(zeros, params), err)

@@ -1,6 +1,7 @@
 """Train and serving step factories: the QAT train step (microbatched
 gradient accumulation, remat, int8 gradient compression with error
-feedback), one batched decode step and the full-sequence prefill."""
+feedback), one batched decode step, the full-sequence prefill and the
+cache-free prefill forward of the dry run's prefill cells."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,8 +10,9 @@ import torch
 
 from ..configs import ArchConfig
 from ..device import true_div
+from ..models import layers
 from ..models import transformer as T
-from ..quant import QuantConfig
+from ..quant import QuantConfig, qdot
 from . import optimizer as opt_mod
 from .optimizer import OptConfig, tree_leaves, tree_map, tree_unflatten
 
@@ -107,3 +109,36 @@ def make_prefill_step(cfg: ArchConfig, qcfg: QuantConfig):
         next_tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
         return next_tok, logits, state
     return prefill_step
+
+
+def make_prefill_logits(cfg: ArchConfig, qcfg: QuantConfig):
+    """Cache-free full-sequence forward (the dry run's prefill-shape
+    step): (params, batch) -> the logits of the last 128 positions, (B,
+    min(128, S'), V), S' the tokens plus a VLM's prefix.  The encdec
+    family runs the encoder over ``batch["frontend"]`` and every decoder
+    layer's cross block over its output; the VLM projects its prefix
+    (frontend_proj) and prepends it to the tokens.  Every projection
+    runs through the kernel ``qcfg`` picks (residual_matmul for
+    'residual_xla', delta_matmul for the default 'delta'); attention is
+    torch ops, as the reference's outside Pallas.  No autograd."""
+    @torch.no_grad()
+    def prefill_logits(params, batch):
+        tokens = batch["tokens"]
+        x = layers.embed(params["embed"], tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        cross = None
+        if cfg.family == "encdec":
+            cross = T._run_encoder(params, batch["frontend"], cfg, qcfg)
+        if cfg.family == "vlm":
+            prefix = batch["frontend"]
+            if "frontend_proj" in params:
+                prefix = qdot(prefix, params["frontend_proj"], qcfg)
+            x = torch.cat([prefix.to(x.dtype), x], 1)
+            positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                     device=x.device)
+        x, _, _ = T._decoder_stack(params, x, positions, cfg, qcfg,
+                                   cross_ctx=cross)
+        x = layers.rmsnorm(x, params["final_norm"])
+        return layers.unembed(params["embed"], x[:, -128:], qcfg)
+    return prefill_logits

@@ -1043,3 +1043,78 @@ def test_sharpen_queues_without_holding_the_host(cuda):
         ms = check.cuda_time(functools.partial(sh.sharpen, x, design, cuda),
                              3, queued=True)
         assert ms > 0
+
+
+@pytest.mark.parametrize("backend,kernel", [("delta", "delta_matmul"),
+                                            ("residual_xla",
+                                             "residual_matmul")])
+def test_prefill_logits_full_width_equals_the_plain_run(cuda, backend,
+                                                        kernel):
+    """train.make_prefill_logits at qwen3-1.7b's full width, 1 layer, B =
+    2 x 64 tokens: one launch a projection (7), and the logits of the
+    run through the kernels equal those of the same run with the plain
+    versions on the card.  'delta' is bit-exact launch by launch, so the
+    plain run is free.  residual_xla's kernel sums its float32
+    correction in another order (check.RESID_TOL_REL), which can move a
+    dynamic activation step downstream, so its plain run is fed the
+    kernel run's products: each launch's operands must equal the kernel
+    run's, its plain product is held to the kernel's within
+    check.RESID_TOL_REL of max |out|, and the kernel's product goes on;
+    the logits are then bit-equal."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import make_prefill_logits
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b"), n_layers=1)
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(21),
+                           cfg, device=cuda)
+    tokens = configs.make_smoke_batch(cfg, 2, 64, seed=22)["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device=cuda)}
+    fn = make_prefill_logits(cfg, QuantConfig(design="design2",
+                                              backend=backend, rank=16))
+    ops.reset_launches()
+    got = fn(params, batch)
+    assert ops.LAUNCHES[kernel] == 7
+    assert tuple(got.shape) == (2, 64, cfg.vocab)
+    assert bool(torch.isfinite(got).all())
+    saved = getattr(ops, kernel)
+    if kernel == "delta_matmul":
+        setattr(ops, kernel, lambda a, b, dlut, offset=0, *, unsigned=False,
+                bias=0: check.delta_plain(dict(a=a, b=b, dlut=dlut,
+                                               offset=offset,
+                                               unsigned=unsigned,
+                                               bias=bias)))
+    else:
+        calls = []
+
+        def record(a, b, F, G, offset=0):
+            out = saved(a, b, F, G, offset)
+            calls.append((a.clone(), b.clone(), out.clone()))
+            return out
+        ops.residual_matmul = record
+        try:
+            assert torch.equal(fn(params, batch), got)
+        finally:
+            ops.residual_matmul = saved
+        fed = iter(calls)
+
+        def plain_fed(a, b, F, G, offset=0):
+            ka, kb, kout = next(fed)
+            assert torch.equal(a, ka) and torch.equal(b, kb), \
+                "the plain run's operands left the kernel run's"
+            check._resid_err(kout, ref.residual_corrected_matmul_ref(
+                a, b, F, G, offset))
+            return kout
+        ops.residual_matmul = plain_fed
+    try:
+        ops.reset_launches()
+        want = fn(params, batch)
+        assert ops.LAUNCHES[kernel] == 0
+    finally:
+        setattr(ops, kernel, saved)
+    if kernel == "residual_matmul":
+        assert next(fed, None) is None and len(calls) == 7
+    assert torch.equal(got, want)

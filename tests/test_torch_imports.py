@@ -32,7 +32,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
               "configs.nemotron_4_340b", "configs.recurrentgemma_2b",
               "configs.xlstm_125m", "configs.whisper_small",
               "configs.internvl2_76b", "app", "app.sharpening",
-              "app.edge_detection", "app.tables", "core.metrics"):
+              "app.edge_detection", "app.tables", "core.metrics",
+              "launch.mesh", "launch.shardings", "launch.dryrun",
+              "models.sharding"):
         assert "repro_torch." + m in mods
     code = (
         "import importlib, json, sys\n"
@@ -46,6 +48,19 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
                          capture_output=True, timeout=300, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_dryrun_import_leaves_xla_flags_unset():
+    """The reference's dry run forces 512 host devices through XLA_FLAGS
+    before jax starts; the port's needs no device and sets nothing."""
+    code = ("import os\n"
+            "import repro_torch.launch.dryrun\n"
+            "print(repr(os.environ.get('XLA_FLAGS')))\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=300, check=True)
+    assert out.stdout.strip().splitlines()[-1] == "None"
 
 
 def test_port_serves_every_config_of_the_reference():

@@ -538,10 +538,11 @@ def test_launcher_trains_a_config_it_is_given():
     assert np.isfinite(res.losses[0])
 
 
-# --plan is ported (tests/test_torch_plan.py); with --mesh beside it the
-# launcher still refuses, before it reads the plan
-@pytest.mark.parametrize("flag", [["--plan", "plan.json", "--mesh", "host"],
-                                  ["--mesh", "host"]])
+# --plan is ported (tests/test_torch_plan.py) and so is --mesh host (the
+# one-card mesh, tests/test_torch_dryrun.py); the production meshes are
+# refused, before the launcher reads the plan
+@pytest.mark.parametrize("flag", [["--plan", "plan.json", "--mesh", "single"],
+                                  ["--mesh", "multi"]])
 def test_launcher_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit):
         tlaunch.main(["--smoke", "--device", "cpu", "--steps", "1"] + flag)
