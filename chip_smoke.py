@@ -2,9 +2,9 @@
 """Drive the PyTorch/CUDA port's serving, training and design-plan paths,
 the options of launch.serve, the MoE family, the other decoder-only
 families, the encoder-decoder and the VLM, the paper's own
-applications, tables and examples, and the multi-device modules (the
-dry run of the production meshes, the cache-free prefill) on one NVIDIA
-card and check them.
+applications, tables and examples, the multi-device modules (the dry
+run of the production meshes, the cache-free prefill) and the QAT
+training of every family on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,13 @@ error and carries on:
                and 64), both modes, decode_attention at 12/12 hd 64 (the
                serve and calibration positions, the chunk edges of 448),
                lut_matmul at internvl2's merged projections (M = 4 both
-               modes, 256 asym_u8) and its prefix (M = 512, K = 3,200)
+               modes, 256 asym_u8) and its prefix (M = 512, K = 3,200);
+               phase 18's distinct training projections, once each:
+               lut_matmul asym_u8 and residual_matmul sym_i8 (the MoE
+               experts at M = 160 and 40, the routers' N = 8 and 16, the
+               mLSTM gates' N = 4, whisper's encoder and cross k/v at
+               M = 6,000, internvl2 at M = 1,536 with K up to 28,672 and
+               its prefix at M = 1,024), two launches bit-equal
   4. serve     full-width qwen3-1.7b (28 layers, seeded random weights):
                --calibrate 1 with 4 requests, prompt 64, gen 16, in
                asym_u8 and sym_i8; launch counts must match the path, and
@@ -58,11 +64,12 @@ error and carries on:
                calibration table is kept for phase 12)
   5. parity    the serving path at 1 layer of full width (PARITY_LAYERS):
                every kernel launch of the card's run held against its
-               plain version on the CPU from the same inputs (the
-               attention's appended rows read from the card's caches,
-               every other row held to a copy from before the call; the
-               free-running CPU run beside it dropped to buy phase 17's
-               time);
+               plain version from the same inputs, on the CPU or, for a
+               product launch above PARITY_CARD_GATHERS gathers (for
+               time), on the card (the attention's appended
+               rows read from the card's caches, every other row held
+               to a copy from before the call; the free-running CPU run
+               beside it dropped to buy phase 17's time);
                and --design initial asym_u8 uncalibrated ('delta') and
                calibrated ('fused'), held launch by launch
   6. train     full-width qwen3-1.7b QAT through repro_torch.launch.train
@@ -76,7 +83,8 @@ error and carries on:
                --ckpt-dir, which restores to tensors equal to it
   7. train parity  one train step at 1 layer of full width on the card:
                every lut_matmul / residual_matmul launch held against
-               its plain version on the CPU (the free-running CPU step
+               its plain version (on the card above PARITY_CARD_GATHERS
+               gathers, for time; the free-running CPU step
                beside it dropped to buy phase 17's time)
   8. timing    each kernel and its plain version with CUDA events at the
                paths' shapes: ``ms`` times back-to-back wrapper calls (what
@@ -103,7 +111,8 @@ error and carries on:
                cases, internvl2's lut_matmul at M = 4, 256 and the
                prefix's 512); every case of these phase-12 to -15 shapes
                is held against its plain version on the card before it is
-               timed
+               timed; phase 18's training shapes (``train_families``,
+               per config), the plain version's ms from its phase-3 call
   9. trace     torch.profiler over full-width decode steps of the serve
                path: kernel launches per step by name, the device's busy
                share of the traced window, host-side op counts
@@ -174,9 +183,10 @@ error and carries on:
                published, --prequantize (16 lut_matmul + 4
                decode_attention a step), both modes; (d) one encoder
                layer, one decoder layer and its cross block of whisper
-               served calibrated in both modes, and one layer of
-               internvl2's forward_train with its 256-patch prefix
-               (asym_u8), every launch held against its plain version
+               served calibrated in both modes, and a remat train step
+               of one layer of internvl2 with its 256-patch prefix
+               (asym_u8, phase 18's parity_train_step), every launch
+               held against its plain version
  16. applications  the paper's evaluation (repro_torch.app), each card
                result held equal to the same call on the CPU: (a) blur and
                sharpen of the 6 synthetic images for the 7 designs of
@@ -207,6 +217,27 @@ error and carries on:
                timed as phase 8 times its rows; (c) is phase 6's first run, which
                passes --mesh host.  Its residual_matmul launches stand
                apart in the JSON (``prefill_logits``)
+ 18. train families  QAT of every family at full width, --batch 4 --seq
+               128, remat on, 2 steps each of --backend xla asym_u8
+               (lut_matmul) and residual sym_i8 (residual_matmul): (a)
+               mixtral-8x7b at 2 of 32 layers, llama4-scout at 1 of 48,
+               recurrentgemma-2b at 9 of 27, xlstm-125m whole, gemma-7b
+               at 1 of 28 and minitron-8b at 1 of 32 through
+               launch.train's run(args, cfg=...); whisper-small whole
+               (1,500 encoder frames a request) and internvl2-76b at 1 of
+               80 (its 256 prefix patches) through train.make_train_step,
+               as both train CLIs raise KeyError: 'frontend' for them
+               (TRAIN_FAMILY_RUNS: the depths that a float32 AdamW
+               state fits; nemotron-4-340b does not fit one card); losses,
+               grad norms, ms per step and peak GiB printed, launch
+               counts held to the path's (family_train_per_model); (b)
+               one pattern unit of each (whisper: one encoder and one
+               decoder layer; internvl2's is phase 15 (d)), one xla
+               asym_u8 train step with every lut_matmul launch, forward
+               and remat recompute, held against its plain version (on
+               the card above PARITY_CARD_GATHERS gathers) and each
+               recompute's quantized activations equal to its forward's.
+               Its launches stand apart in the JSON (``train_families``)
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
@@ -255,11 +286,12 @@ MOE_RUNS = (("mixtral-8x7b", 2), ("llama4-scout-17b-a16e", 2))
 # its plain version on the card, not on the CPU (the experts, the merged
 # attention and the shared expert at full width)
 MOE_CARD_GATHERS = 1 << 24
-# phases 11, 12 (a)-(c) and 14's parity: a product launch of more gathers
-# than this is held against its plain version on the card (every qwen3
-# and family projection at M >= 2), so only the attention and the
-# smallest products run on the CPU: their CPU gathers took about 200 s
-# of a slow host's 1,210 s (PERF.md, PR 17)
+# phases 5, 7, 11, 12 (a)-(c), 14 and 18's parity: a product launch of
+# more gathers than this is held against its plain version on the card
+# (every qwen3 and family projection at M >= 2), so only the attention
+# and the smallest products run on the CPU: their CPU gathers took about
+# 200 s of a slow host's 1,210 s, and phases 5 and 7's 86 s of a 1,010 s
+# run (PERF.md)
 PARITY_CARD_GATHERS = 1 << 22
 # the remaining decoder families (phase 14): every width of the
 # reference's CONFIG; the dense configs' depth cut so that their float32
@@ -510,7 +542,7 @@ def check_moe_kernels(dev, errs):
             mode = "sym_i8" if signed else "asym_u8"
             for i, (name, K, N, M, _) in enumerate(calib):
                 check.check_delta(check.delta_case(M, K, N, signed, 900 + i,
-                                                   dev))
+                                                   dev, device_draw=True))
                 n += 1
             log(f"[kernels] {arch} {mode}: delta_matmul at the "
                 f"{len(calib)} calibration projections (M = {B}, experts "
@@ -522,7 +554,8 @@ def check_moe_kernels(dev, errs):
                     for comp in ((True, False) if name == "router"
                                  else (True,)):
                         case = check.fused_case(M, K, N, signed, 920 + i,
-                                                dev, compensate=comp)
+                                                dev, compensate=comp,
+                                                device_draw=True)
                         r = check.check_fused(case)
                         n += 1
                         errs["fused_qdot"] = max(errs["fused_qdot"],
@@ -541,7 +574,8 @@ def check_moe_kernels(dev, errs):
                 if name.startswith("expert"):
                     for M in (m_dec, m_pre):
                         r = check.check_fused(check.fused_case(
-                            M, K, N, signed, 940 + i, dev, sx=1e-8))
+                            M, K, N, signed, 940 + i, dev, sx=1e-8,
+                            device_draw=True))
                         n += 1
                         log(f"[kernels] {arch} fused_qdot {mode} {name} "
                             f"M={M} K={K} N={N} at the degenerate scale "
@@ -871,7 +905,8 @@ def parity_initial(cfg_full):
     """serve --design initial --quant-mode asym_u8 at PARITY_LAYERS of
     full width, uncalibrated ('delta': every projection a delta_matmul launch
     on the biased table) and calibrated ('fused'), every launch held
-    against its plain version on the CPU."""
+    against its plain version: on the CPU, or on the card for a product
+    launch of more than PARITY_CARD_GATHERS gathers."""
     import numpy as np
     from repro_torch.kernels import check
     from repro_torch.quant import QuantConfig
@@ -886,7 +921,7 @@ def parity_initial(cfg_full):
         names = (check.CpuShadow.SERVE if backend == "fused"
                  else ("delta_matmul", "decode_attention"))
         t0 = time.perf_counter()
-        with check.CpuShadow(names) as sh:
+        with check.CpuShadow(names, card_gathers=PARITY_CARD_GATHERS) as sh:
             _, ids, _, _ = _serve_once(cfg, params_gpu, q, None, cal,
                                        prompts, 3, "cuda")
         _shadow_log(f"initial asym_u8 {backend}", sh, t0)
@@ -896,13 +931,14 @@ def parity_initial(cfg_full):
 def slice_parity(cfg_full):
     """Full width, depth PARITY_LAYERS, seeded weights and prompts, the
     card's own calibration table.  Asserted: every kernel launch of the
-    card's run equals its plain version run on the CPU from the same
-    inputs (CpuShadow).  The free-running CPU run beside it (reported,
-    never asserted: PyTorch's CPU and CUDA glue ops differ by float32
-    ulps, a few activations per forward then land on the other side of a
-    static quantization step, and this random-weight model amplifies
-    each flipped step) was dropped to buy phase 17's time: 14 s of host
-    CPU a run (PERF.md)."""
+    card's run equals its plain version run from the same inputs
+    (CpuShadow: on the CPU, or on the card for a product launch of more
+    than PARITY_CARD_GATHERS gathers).  The free-running CPU run beside
+    it (reported, never asserted: PyTorch's CPU and CUDA glue ops differ
+    by float32 ulps, a few activations per forward then land on the
+    other side of a static quantization step, and this random-weight
+    model amplifies each flipped step) was dropped to buy phase 17's
+    time: 14 s of host CPU a run (PERF.md)."""
     import numpy as np
     import torch
     from repro_torch.kernels import check
@@ -918,7 +954,7 @@ def slice_parity(cfg_full):
         q = QuantConfig(design="design2", backend="fused", mode=mode,
                         inference=True)
         t0 = time.perf_counter()
-        with check.CpuShadow() as sh:
+        with check.CpuShadow(card_gathers=PARITY_CARD_GATHERS) as sh:
             _, ids_g, lg_g, _ = _serve_once(cfg, params_gpu, q, None, cal,
                                             prompts, g, "cuda")
         _shadow_log(mode, sh, t0)
@@ -1010,8 +1046,9 @@ def checkpoint_round_trip(r):
 def train_parity(cfg_full):
     """One train step at PARITY_LAYERS of full width on the card.
     Asserted: every lut_matmul / residual_matmul launch of the card's
-    step equals its plain version on the CPU from the same inputs
-    (CpuShadow), with the path's launch count.  The free-running CPU
+    step equals its plain version from the same inputs (CpuShadow: on
+    the card above PARITY_CARD_GATHERS gathers, else on the CPU), with
+    the path's launch count.  The free-running CPU
     step beside it (reported, never asserted: a float32 ulp of PyTorch's
     CPU and CUDA glue can flip a dynamic quantization step, and the
     random-weight model amplifies each flip) was dropped to buy phase
@@ -1040,7 +1077,8 @@ def train_parity(cfg_full):
                               device="cpu")
         p_gpu = opt_mod.tree_map(lambda t: t.to("cuda", copy=True), p_cpu)
         t0 = time.perf_counter()
-        with check.CpuShadow(check.CpuShadow.TRAIN) as sh:
+        with check.CpuShadow(check.CpuShadow.TRAIN,
+                             card_gathers=PARITY_CARD_GATHERS) as sh:
             p_gpu, _, m_gpu = step(p_gpu, opt_mod.init(p_gpu, ocfg),
                                    {k: v.to("cuda") for k, v in
                                     batch.items()})
@@ -1048,7 +1086,8 @@ def train_parity(cfg_full):
         want = 7 * cfg.n_layers * 2
         assert st["calls"] == want, (name, st["calls"], want)
         log(f"[train parity] {backend} {mode}: {st['calls']} {name} "
-            f"launches held against the CPU plain version; max |err| "
+            f"launches held against the plain version ({st['on_card']} "
+            f"on the card, the rest on the CPU); max |err| "
             f"{st['max_abs_err']:.3e} ({time.perf_counter() - t0:.1f}s); "
             f"loss {float(m_gpu['loss'])!r}")
         assert math.isfinite(float(m_gpu["loss"]))
@@ -2460,11 +2499,12 @@ def encdec_vlm_parity_one_unit():
     launch held against its plain version (CpuShadow).  whisper-small at
     one encoder layer, one decoder layer and its cross block, served
     calibrated in both modes (on the CPU: every launch is small);
-    internvl2-76b's forward_train at one layer under no_grad ('xla',
-    asym_u8; sym_i8's lut_matmul shapes are phase 3's), B = 2 with the
-    256-patch prefix and 64 tokens: the prefix projection (M = 512) and
-    the layer's 7 projections (M = 640), each held against its plain
-    version on the card."""
+    internvl2-76b's remat train step at one layer (parity_train_step,
+    'xla', asym_u8; sym_i8's lut_matmul shapes are phase 3's), B = 2
+    with the 256-patch prefix and 64 tokens: the prefix projection (M =
+    512) and the layer's 7 projections (M = 640) and their 7 recomputes,
+    each held against its plain version on the card, each recompute
+    equal to its forward."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -2506,26 +2546,15 @@ def encdec_vlm_parity_one_unit():
     del params
     vcfg = dataclasses.replace(configs.get("internvl2-76b"), n_layers=1)
     _, train_shapes, _ = vlm_shapes(vcfg)
-    params = T.init_params(torch.Generator(device="cuda").manual_seed(17),
-                           vcfg, device="cuda")
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in
              configs.make_smoke_batch(vcfg, 2, P, seed=18).items()}
     assert tuple(batch["frontend"].shape) == (2, vcfg.n_prefix,
                                               vcfg.frontend_dim)
-    for mode in ("asym_u8",):
-        q = QuantConfig(design="design2", backend="xla", mode=mode)
-        t0 = time.perf_counter()
-        with check.CpuShadow(("lut_matmul",),
-                             card_gathers=MOE_CARD_GATHERS) as sh:
-            loss, _ = T.forward_train(params, batch, vcfg, q)
-        tag = f"internvl2-76b forward_train (1 layer, prefix 256) {mode}"
-        _shadow_log(tag, sh, t0)
-        st = sh.stats["lut_matmul"]
-        assert st["calls"] == 1 + len(train_shapes), (tag, st)
-        assert st["on_card"] == st["calls"], (tag, st)
-        assert bool(torch.isfinite(loss)), loss
-        log(f"[parity] {tag}: loss {float(loss):.6f}")
-    del params, batch
+    _, st = parity_train_step(vcfg, "internvl2-76b train step (1 layer, "
+                              "prefix 256) asym_u8", batch, MOE_CARD_GATHERS)
+    assert st["calls"] == 1 + 2 * len(train_shapes), st
+    assert st["on_card"] == st["calls"], st
+    del batch
     torch.cuda.empty_cache()
 
 
@@ -2803,7 +2832,7 @@ def time_kernels(cfg, dev):
 
 def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
                  moe_launches, errs, fam_rows, fam_launches, ev_rows,
-                 ev_launches, prefill_rows):
+                 ev_launches, prefill_rows, tf_rows, tf_launches):
     """The kernels' JSON record: per kernel the launches of the paths'
     runs, the max error of phase 3 and the timings of phase 8 (for
     delta_matmul also its planned-QAT shape, ``plan_qat``, and the
@@ -2813,8 +2842,10 @@ def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
     ``families``, per config; phase 15's, ``encdec_vlm``, per config:
     whisper-small's three serving kernels and internvl2-76b's
     lut_matmul); for residual_matmul phase 17's cache-free prefill,
-    ``prefill_logits`` (per config its ms, peak GiB and launches), each
-    with the launches of its own runs."""
+    ``prefill_logits`` (per config its ms, peak GiB and launches); for
+    the two training kernels phase 18's shapes, ``train_families`` (per
+    config, the launches of its two runs), each with the launches of its
+    own runs."""
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")
     kernels = []
@@ -2849,7 +2880,8 @@ def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
         for sub, sub_rows, sub_launches in (
                 ("moe", moe_rows, moe_launches),
                 ("families", fam_rows, fam_launches),
-                ("encdec_vlm", ev_rows, ev_launches)):
+                ("encdec_vlm", ev_rows, ev_launches),
+                ("train_families", tf_rows, tf_launches)):
             if name in sub_rows:
                 kernels[-1][sub] = {
                     arch: {"launches": sub_launches[arch][name],
@@ -3158,7 +3190,9 @@ def dryrun_meshes(smi: str) -> dict:
     return out
 
 
-def prefill_logits_config(arch, layers):
+def depth_cut(arch, layers):
+    """(``arch``'s full-width config cut to ``layers`` of its depth, or
+    whole for None; its tag for the log)."""
     from repro_torch import configs
     base = configs.get(arch)
     if layers is None:
@@ -3321,7 +3355,7 @@ def prefill_logits_on_card() -> dict:
     q = QuantConfig(design="design2", backend="residual_xla", rank=16)
     rows, total = {}, 0
     for i, (arch, layers) in enumerate(PREFILL_RUNS):
-        cfg, tag = prefill_logits_config(arch, layers)
+        cfg, tag = depth_cut(arch, layers)
         params_cpu = None
         if arch == "qwen3-1.7b":
             params_cpu, params = _card_params(cfg, 170 + i)
@@ -3409,6 +3443,425 @@ def multi_device(smi: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 18: QAT training of the other families
+# ---------------------------------------------------------------------------
+
+# (arch, layers; None: the whole depth), every width as published, --batch
+# 4 --seq 128 (TB x TS), remat on.  A float32 AdamW step holds four copies
+# of the params (params, grads, two moments), so the depth is cut where
+# they and the activations would not fit the card: mixtral about 23 GB a
+# layer and 2.1 GB of embedding; scout about 35 GB a layer and 16.5 GB of
+# embedding (2 layers would be about 87 GB); internvl2 about 31 GB at one
+# layer; recurrentgemma at 3 of its 9 pattern units, as phase 14, and
+# gemma and minitron at one layer, for the script's time.
+# nemotron-4-340b does not train on one card: one layer with its state is
+# about 55 GB and its embedding with its state about 76 GB (minitron-8b
+# trains the same relu2 MLP).
+TRAIN_FAMILY_RUNS = (("mixtral-8x7b", 2), ("llama4-scout-17b-a16e", 1),
+                     ("recurrentgemma-2b", 9), ("xlstm-125m", None),
+                     ("gemma-7b", 1), ("minitron-8b", 1),
+                     ("whisper-small", None), ("internvl2-76b", 1))
+TRAIN_FAMILY_BACKENDS = (("xla", "asym_u8"), ("residual", "sym_i8"))
+TRAIN_KERNEL = {"xla": "lut_matmul", "residual": "residual_matmul"}
+# phase 18's parity: one pattern unit of each family (whisper: one
+# encoder and one decoder layer; internvl2's train step is phase 15 (d)'s)
+TRAIN_PARITY_UNITS = ("mixtral-8x7b", "llama4-scout-17b-a16e",
+                      "recurrentgemma-2b", "xlstm-125m", "whisper-small",
+                      "gemma-7b", "minitron-8b")
+
+
+def family_train_shapes(cfg, batch=TB, seq=TS):
+    """The projection launches of one remat QAT step of ``cfg`` on
+    ``batch`` x ``seq`` tokens, one (name, M, K, N) a launch: every
+    decoder projection twice (the forward and its recompute in the
+    backward pass), an MoE expert at M = its capacity; whisper's encoder
+    (M = batch x enc_seq frames) and the VLM's prefix projection (M =
+    batch x n_prefix) once, outside remat, as in the reference; the cross
+    block's k/v over the encoder's rows, its q/o over the tokens', the
+    VLM's decoder over prefix and tokens."""
+    from repro_torch.models.moe import capacity
+    D, H, Kv, hd, F, R, E = (cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+                             cfg.d_ff, cfg.d_rnn, cfg.n_experts)
+    T = batch * seq
+    M = batch * (cfg.n_prefix + seq) if cfg.family == "vlm" else T
+    glu = cfg.mlp_kind in ("geglu", "swiglu")
+    attn = [("wq", D, H * hd), ("wk", D, Kv * hd), ("wv", D, Kv * hd),
+            ("wo", H * hd, D)]
+    mlp = ([("w_gate", D, F), ("w_up", D, F)] if glu
+           else [("w_up", D, F)]) + [("w_down", F, D)]
+    layer = []
+    for kind in cfg.pattern:
+        if kind == "attn":
+            layer += [(n, M, K, N) for n, K, N in attn + (mlp if F else [])]
+        elif kind == "rec":
+            layer += [(n, M, K, N) for n, K, N in
+                      [("rec w_in", D, R), ("rec w_gate_x", D, R),
+                       ("rec w_gate_a", D, R), ("rec w_out", R, D)]
+                      + (mlp if F else [])]
+        elif kind == "mlstm":
+            layer += [(f"mlstm {n}", M, D, D) for n in
+                      ("wq", "wk", "wv", "wo")]
+            layer += [(f"mlstm {n}", M, D, H) for n in ("wi", "wf")]
+        elif kind == "slstm":
+            layer += [(f"slstm {n}", M, D, D) for n in
+                      ("wz", "wi", "wf", "wo_gate", "wo")]
+        elif kind == "moe":
+            C = capacity(T, cfg.top_k, E)
+            layer += [(n, M, K, N) for n, K, N in attn]
+            layer += [("router", M, D, E)]
+            layer += [(f"expert {n}", C, K, N) for _ in range(E)
+                      for n, K, N in mlp]
+            if cfg.shared_expert_ff:
+                Fs = cfg.shared_expert_ff
+                layer += [("shared w_gate", M, D, Fs), ("shared w_up", M, D,
+                                                         Fs),
+                          ("shared w_down", M, Fs, D)]
+    if cfg.family == "encdec":
+        M_enc = batch * cfg.enc_seq
+        layer += [("cross wq", M, D, H * hd), ("cross wk", M_enc, D,
+                                                Kv * hd),
+                  ("cross wv", M_enc, D, Kv * hd), ("cross wo", M, H * hd, D)]
+    calls = layer * cfg.n_units * 2
+    if cfg.frontend_dim and cfg.frontend_dim != cfg.d_model:
+        rows = batch * (cfg.n_prefix if cfg.family == "vlm"
+                        else cfg.enc_seq)
+        calls += [("frontend_proj", rows, cfg.frontend_dim, D)]
+    if cfg.family == "encdec":
+        M_enc = batch * cfg.enc_seq
+        calls += [(f"enc {n}", M_enc, K, N) for n, K, N in attn + mlp] \
+            * cfg.enc_layers
+    return calls
+
+
+def family_train_per_model(cfg, batch=TB, seq=TS) -> int:
+    """lut_matmul (xla) or residual_matmul (residual) launches of one QAT
+    step of the whole (depth-cut) model: one a projection call of
+    family_train_shapes."""
+    return len(family_train_shapes(cfg, batch, seq))
+
+
+def train_family_shapes():
+    """The distinct (M, K, N) of phase 18's runs, each with the configs
+    and projections that launch it: [((M, K, N), [(arch, name), ...])]."""
+    out = {}
+    for arch, layers in TRAIN_FAMILY_RUNS:
+        cfg, _ = depth_cut(arch, layers)
+        for name, M, K, N in family_train_shapes(cfg):
+            who = out.setdefault((M, K, N), [])
+            if (arch, name) not in who:
+                who.append((arch, name))
+    return sorted(out.items())
+
+
+def _family_batch(cfg, step, rng, batch=TB, seq=TS):
+    """launch.train's batch at ``step`` (data.host_batch) on the card, and
+    for the encdec and vlm families the stub frontend's float32 frames
+    (whisper: enc_seq of them a request) or prefix patches (internvl2:
+    n_prefix), drawn standard-normal from ``rng`` as make_smoke_batch
+    draws them."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, host_batch
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    b = dict(host_batch(dcfg, step))
+    rows = {"encdec": cfg.enc_seq, "vlm": cfg.n_prefix}.get(cfg.family)
+    if rows:
+        b["frontend"] = rng.normal(size=(
+            batch, rows, cfg.frontend_dim or cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+
+
+def _train_direct(cfg, backend, mode):
+    """launch.train's loop for the families whose batch needs the frontend
+    (both packages' train CLIs raise KeyError: 'frontend' for them):
+    TF32 off, the launcher's params (generator seed 0 on the card),
+    optimizer config and tokens, TSTEPS remat steps of
+    train.make_train_step, the frontend drawn by _family_batch.  Returns
+    a launch.train.TrainResult."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    q = QuantConfig(design="design2", backend=backend, mode=mode)
+    ocfg = OptConfig(lr=3e-4, warmup_steps=max(TSTEPS // 20, 5),
+                     total_steps=TSTEPS)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, device="cuda")
+    opt = opt_mod.init(params, ocfg)
+    step_fn = make_train_step(cfg, q, ocfg, remat=True)
+    rng = np.random.default_rng(18)
+    res = train.TrainResult([], [], [], 0, 0, params, opt)
+    for step in range(TSTEPS):
+        batch = _family_batch(cfg, step, rng)
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        res.losses.append(float(metrics["loss"]))     # waits for the card
+        res.step_s.append(time.perf_counter() - t0)
+        res.grad_norms.append(float(metrics["grad_norm"]))
+    res.peak_bytes = torch.cuda.max_memory_allocated()
+    res.params, res.opt_state = params, opt
+    return res
+
+
+def train_families(smi: str):
+    """Phase 18 (a): each config of TRAIN_FAMILY_RUNS trains TSTEPS steps
+    at full width and its depth cut, --batch 4 --seq 128, remat on, in
+    each of TRAIN_FAMILY_BACKENDS: the MoE, recurrent and dense configs
+    through launch.train's run(args, cfg=...), whisper and internvl2
+    through train.make_train_step (_train_direct).  Each run's launch
+    counts are read just after it and held to the path's
+    (family_train_per_model), its losses and grad norms finite.  Returns
+    {arch: {kernel: launches}}."""
+    import math
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    log("[train families] nemotron-4-340b is not trained: one layer with "
+        "its float32 AdamW state is about 55 GB and its embedding with its "
+        "state about 76 GB of this card's 80 GB (minitron-8b trains the "
+        "same relu2 MLP)")
+    launches, rows = {}, {}
+    for arch, layers in TRAIN_FAMILY_RUNS:
+        cfg, name = depth_cut(arch, layers)
+        per_step = family_train_per_model(cfg)
+        launches[arch] = {"lut_matmul": 0, "residual_matmul": 0}
+        for backend, mode in TRAIN_FAMILY_BACKENDS:
+            kernel = TRAIN_KERNEL[backend]
+            tag = f"{name} {backend} {mode}"
+            want = dict.fromkeys(ops.LAUNCHES, 0)
+            want[kernel] = per_step * TSTEPS
+            t0 = time.perf_counter()
+            with PlainGuard():
+                ops.reset_launches()
+                if cfg.family in ("encdec", "vlm"):
+                    r = _train_direct(cfg, backend, mode)
+                else:
+                    r = train.run(train.parse_args(
+                        ["--arch", arch, "--batch", str(TB), "--seq",
+                         str(TS), "--steps", str(TSTEPS), "--backend",
+                         backend, "--quant-mode", mode, "--log-every",
+                         str(TSTEPS)]), cfg=cfg)
+                counts = _launched("train families", tag, want)
+            launches[arch][kernel] += counts[kernel]
+            assert len(r.losses) == TSTEPS, tag
+            assert all(math.isfinite(x) for x in r.losses + r.grad_norms), \
+                tag
+            ms = [t * 1e3 for t in r.step_s]
+            rows[tag] = {"layers": cfg.n_layers, "losses": r.losses,
+                         "grad_norms": r.grad_norms, "ms_per_step": ms,
+                         "peak_gib": r.peak_bytes / 2**30,
+                         f"{kernel}_per_step": per_step,
+                         "seconds": time.perf_counter() - t0}
+            log(f"[train families] {tag}: losses {r.losses}, grad norms "
+                f"{r.grad_norms}; ms per step {ms}; peak device memory "
+                f"{r.peak_bytes / 2**30:.3f} GiB ({smi}); {per_step} "
+                f"{kernel} launches a step; "
+                f"{time.perf_counter() - t0:.1f}s")
+            del r
+            torch.cuda.empty_cache()
+    log("[train families] " + json.dumps({"train_families": rows}))
+    return launches
+
+
+class RematCheck:
+    """While active, each launch of the training kernel ``name`` is paired
+    with the earlier launch on an equal weight operand (the layer's
+    forward launch that its remat recompute repeats), and the entries of
+    the quantized activations that differ between the two are counted
+    (``flips``).  Unpaired launches (those that run once, outside remat)
+    stay in ``unpaired``."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.saved = ops, getattr(ops, self.name)
+        self.unpaired, self.pairs, self.flips, self.entries = [], 0, 0, 0
+
+        def call(a, b, *args, **kw):
+            for i, (fa, fb) in enumerate(self.unpaired):
+                if fa.shape == a.shape and fb.shape == b.shape \
+                        and bool((fb == b).all()):
+                    self.flips += int((fa != a).sum())
+                    self.entries += a.numel()
+                    self.pairs += 1
+                    del self.unpaired[i]
+                    break
+            else:
+                self.unpaired.append((a, b))
+            return self.saved(a, b, *args, **kw)
+        setattr(ops, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.name, self.saved)
+
+
+def parity_train_step(cfg, tag, batch, card_gathers):
+    """One 'xla' asym_u8 remat train step of ``cfg`` on the card (seeded
+    params) with every lut_matmul launch held against its plain version
+    (CpuShadow: on the card above ``card_gathers`` gathers, on the CPU
+    below) and each weight's recompute launch held to its forward launch
+    (RematCheck: 0 flipped entries); the launch count the path's.
+    Returns (the step's metrics, CpuShadow's lut_matmul stats)."""
+    import math
+    import torch
+    from repro_torch.kernels import check
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    B_, S_ = batch["tokens"].shape
+    calls = family_train_shapes(cfg, B_, S_)
+    once = sum(n == "frontend_proj" or n.startswith("enc ")
+               for n, *_ in calls)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(19),
+                           cfg, device="cuda")
+    ocfg = OptConfig(warmup_steps=5, total_steps=100)
+    step = make_train_step(cfg, QuantConfig(design="design2", backend="xla",
+                                            mode="asym_u8"), ocfg,
+                           remat=True)
+    t0 = time.perf_counter()
+    with check.CpuShadow(("lut_matmul",), card_gathers=card_gathers) as sh, \
+            RematCheck("lut_matmul") as rc:
+        _, _, m = step(params, opt_mod.init(params, ocfg), batch)
+        torch.cuda.synchronize()
+    _shadow_log(tag, sh, t0)
+    st = sh.stats["lut_matmul"]
+    assert st["calls"] == len(calls), (tag, st["calls"], len(calls))
+    log(f"[parity] {tag}: {rc.pairs} forward launches recomputed under "
+        f"remat, {rc.flips} of {rc.entries} quantized activation entries "
+        f"of the recompute unequal to the forward's; {len(rc.unpaired)} "
+        f"launches outside remat; loss {float(m['loss'])!r}, grad norm "
+        f"{float(m['grad_norm'])!r}")
+    assert rc.pairs == (len(calls) - once) // 2 and \
+        len(rc.unpaired) == once, (tag, rc.pairs, len(rc.unpaired))
+    assert rc.flips == 0, f"{tag}: the remat recompute flipped {rc.flips}"
+    assert math.isfinite(float(m["loss"])) and math.isfinite(
+        float(m["grad_norm"])), tag
+    return m, st
+
+
+def train_families_parity():
+    """Phase 18 (b): one pattern unit of each family of TRAIN_PARITY_UNITS
+    at full width, one remat train step ('xla', asym_u8) at --batch 4
+    --seq 128 (whisper's enc_seq frames a request) through
+    parity_train_step: every lut_matmul launch held against its plain
+    version, every recompute equal to its forward."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    torch.set_num_threads(os.cpu_count() or 1)
+    for arch in TRAIN_PARITY_UNITS:
+        base = configs.get(arch)
+        cfg = dataclasses.replace(base, n_layers=len(base.pattern))
+        if cfg.family == "encdec":
+            cfg = dataclasses.replace(cfg, enc_layers=1)
+        tag = (f"{arch} train step (one unit, {cfg.n_layers} layer(s)"
+               + (", 1 encoder layer" if cfg.enc_layers else "") + ")")
+        batch = _family_batch(cfg, 0, np.random.default_rng(20))
+        parity_train_step(cfg, tag, batch, PARITY_CARD_GATHERS)
+        del batch
+        torch.cuda.empty_cache()
+
+
+def check_train_family_kernels(dev, errs):
+    """Phase 3 at phase 18's distinct projection shapes (full width):
+    lut_matmul asym_u8 (as the 'xla' backend passes it: offset 0) and
+    residual_matmul sym_i8 (rank RANK, offset 128), each once, against its
+    plain version on the card, two launches bit-equal.  Folds the max
+    errors into ``errs``; returns {(kernel, M, K, N): (plain ms, max
+    |err|)}, the plain call's ms (CUDA events around the one call) for
+    phase 8's rows."""
+    import torch
+    from repro_torch.kernels import check, ops, ref
+    held = {}
+
+    def timed(fn):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return out, s.elapsed_time(e)
+
+    for i, ((M, K, N), who) in enumerate(train_family_shapes()):
+        c = check.lut_case(M, K, N, False, 2200 + i, dev, shifted=False,
+                           device_draw=True)
+        want, plain_ms = timed(lambda: check.lut_plain(c))
+        got = check._launches("lut_matmul", lambda: ops.lut_matmul(**c))
+        assert torch.equal(got, want), ("lut_matmul", M, K, N)
+        assert torch.equal(ops.lut_matmul(**c), got), "not repeatable"
+        held[("lut_matmul", M, K, N)] = (plain_ms, 0.0)
+        del c, want, got
+        c = check.residual_case(M, K, N, True, RANK, 2300 + i, dev,
+                                device_draw=True)
+        want, plain_ms = timed(
+            lambda: ref.residual_corrected_matmul_ref(**c))
+        got = check._launches("residual_matmul",
+                              lambda: ops.residual_matmul(**c))
+        err = check._resid_err(got, want)
+        assert torch.equal(ops.residual_matmul(**c), got), "not repeatable"
+        errs["residual_matmul"] = max(errs["residual_matmul"],
+                                      err["max_abs_err"])
+        held[("residual_matmul", M, K, N)] = (plain_ms, err["max_abs_err"])
+        log(f"[kernels] training M={M} K={K} N={N} ({who}): lut_matmul "
+            f"asym_u8 bit-exact, residual_matmul sym_i8 r={RANK} max |err| "
+            f"{err['max_abs_err']:.3e} ({err['max_rel_err']:.3e} of max "
+            f"|out|); two launches of each bit-equal")
+        del c, want, got
+        torch.cuda.empty_cache()
+    log(f"[kernels] phase 18's shapes: {len(held)} cases held against "
+        f"their plain versions")
+    return held
+
+
+def time_train_family_kernels(dev, held):
+    """Phase 8 at phase 18's distinct projection shapes: lut_matmul
+    asym_u8 and residual_matmul sym_i8, each shape timed once (its plain
+    version's ms and max |err| from phase 3, ``held``), the row listed
+    under every config that launches the shape.  Returns {kernel: {arch:
+    {shape: row}}}."""
+    import torch
+    from repro_torch.kernels import check, ops
+    rows = {"lut_matmul": {}, "residual_matmul": {}}
+    for i, ((M, K, N), who) in enumerate(train_family_shapes()):
+        big = M * K * N > (1 << 33)
+        shape = f"M={M} K={K} N={N}"
+        names = ", ".join(f"{a} {n}" for a, n in who)
+        c = check.lut_case(M, K, N, False, 2200 + i, dev, shifted=False,
+                           device_draw=True)
+        plain, err = held[("lut_matmul", M, K, N)]
+        lut = row("lut_matmul", f"{shape} asym_u8 (train: {names})",
+                  lambda: ops.lut_matmul(**c), 3 if big else 20, plain,
+                  lut_bound(M, K, N), gathers=M * K * N, b=c["b"],
+                  offset=c["offset"])
+        del c
+        c = check.residual_case(M, K, N, True, RANK, 2300 + i, dev,
+                                device_draw=True)
+        plain, rerr = held[("residual_matmul", M, K, N)]
+        res = row("residual_matmul", f"{shape} sym_i8 r={RANK} (train: "
+                  f"{names})", lambda: ops.residual_matmul(**c),
+                  3 if big else 20, plain, residual_bound(M, K, N, RANK))
+        del c
+        for arch, _ in who:
+            rows["lut_matmul"].setdefault(arch, {})[shape] = dict(
+                lut, max_abs_err=err)
+            rows["residual_matmul"].setdefault(arch, {})[shape] = dict(
+                res, max_abs_err=rerr)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase("1. device")
@@ -3463,10 +3916,12 @@ def main() -> int:
         check_family_kernels(dev, errs)
         t4 = time.perf_counter()
         check_encdec_vlm_kernels(dev, errs)
+        t5 = time.perf_counter()
+        held = check_train_family_kernels(dev, errs)
         log(f"[kernels] phase 3 seconds: serving path {t1 - t0:.1f}, "
             f"training {t2 - t1:.1f}, MoE {t3 - t2:.1f}, other families "
-            f"{t4 - t3:.1f}, encoder-decoder and VLM "
-            f"{time.perf_counter() - t4:.1f}")
+            f"{t4 - t3:.1f}, encoder-decoder and VLM {t5 - t4:.1f}, "
+            f"phase 18's training shapes {time.perf_counter() - t5:.1f}")
         phase("4. full-width serve (main path)")
         launches, table = serve_full_width(cfg)
         phase(f"5. slice parity: card vs CPU at {PARITY_LAYERS} layer(s) of "
@@ -3487,8 +3942,11 @@ def main() -> int:
         fam_rows = time_family_kernels(dev)
         t1 = time.perf_counter()
         ev_rows = time_encdec_vlm_kernels(dev)
+        t2 = time.perf_counter()
+        tf_rows = time_train_family_kernels(dev, held)
         log(f"[timing] the other families' rows: {t1 - t0:.1f}s; the "
-            f"encoder-decoder and VLM rows: {time.perf_counter() - t1:.1f}s")
+            f"encoder-decoder and VLM rows: {t2 - t1:.1f}s; phase 18's "
+            f"training rows: {time.perf_counter() - t2:.1f}s")
         phase("9. trace of the decode step")
         trace_decode(cfg)
         phase("10. per-layer design plans at full width")
@@ -3525,6 +3983,13 @@ def main() -> int:
           "prefill")
     prefill_rows = multi_device(smi)
     launches["residual_matmul_prefill_logits"] = prefill_rows["launches"]
+    phase("18. QAT training of the other families at full width")
+    t0 = time.perf_counter()
+    tf_launches = train_families(smi)
+    t1 = time.perf_counter()
+    train_families_parity()
+    log(f"[train families] phase 18 seconds: runs {t1 - t0:.1f}, parity "
+        f"{time.perf_counter() - t1:.1f}")
     # the plan runs' launches join the paths' counts, but for the planned
     # QAT steps' delta_matmul launches (M = TB*TS), which stand apart
     # beside their own timing row
@@ -3542,7 +4007,8 @@ def main() -> int:
     launches["delta_matmul_unembed"] = unembed_launches
     kernels = kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
                            moe_launches, errs, fam_rows, fam_launches,
-                           ev_rows, ev_launches, prefill_rows)
+                           ev_rows, ev_launches, prefill_rows, tf_rows,
+                           tf_launches)
     log(f"\n[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

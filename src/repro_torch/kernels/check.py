@@ -390,11 +390,15 @@ def check_lut(case) -> dict:
     return {"max_abs_err": 0.0}
 
 
-def residual_case(M, K, N, signed, rank, seed, device, design="design2"):
+def residual_case(M, K, N, signed, rank, seed, device, design="design2",
+                  device_draw=False):
+    """Inputs of one residual_matmul launch: uniform operands and the
+    rank-``rank`` factors; ``device_draw``: the weights drawn on the
+    device."""
     rng = np.random.default_rng(seed)
     lo, hi = (-128, 128) if signed else (0, 256)
     a = torch.from_numpy(rng.integers(lo, hi, (M, K)).astype(np.int32))
-    b = torch.from_numpy(rng.integers(lo, hi, (K, N)).astype(np.int32))
+    b = _weight_operand(rng, seed, K, N, lo, hi, device, device_draw)
     F, G = ops.get_factors(design, rank, signed)
     return dict(a=a.to(device),
                 b=b.to(torch.int8 if signed else torch.uint8).to(device),

@@ -551,6 +551,90 @@ def test_smoke_train_step_matches_cpu_launch_by_launch(cuda, backend, mode):
         metrics["grad_norm"])
 
 
+TRAIN_FAMILIES = ["mixtral-8x7b", "llama4-scout-17b-a16e",
+                  "recurrentgemma-2b", "xlstm-125m", "whisper-small",
+                  "internvl2-76b", "gemma-7b", "minitron-8b"]
+
+
+@pytest.mark.parametrize("backend,mode", [("xla", "asym_u8"),
+                                          ("residual", "sym_i8")])
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_family_smoke_train_step_matches_cpu_launch_by_launch(cuda, arch,
+                                                              backend, mode):
+    """One smoke train step of each family on the card, remat on, two
+    microbatches (the frontend's frames or patches split with the
+    tokens): every lut_matmul / residual_matmul launch equals its plain
+    version run on the CPU from the same inputs (check.CpuShadow), and
+    the card launches as many as the same step run on the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.quant import QuantConfig
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train import optimizer as opt_mod
+    cfg = configs.get_smoke(arch)
+    ocfg = OptConfig(compress_grads=True)
+    step = make_train_step(cfg, QuantConfig(backend=backend, mode=mode),
+                           ocfg, microbatches=2, remat=True)
+    batch = {k: torch.as_tensor(v) for k, v in
+             configs.make_smoke_batch(cfg, 4, 16, seed=1).items()}
+    name = "lut_matmul" if backend == "xla" else "residual_matmul"
+    cpu_calls = []
+    orig = getattr(ops, name)
+
+    def count(*a, **k):
+        cpu_calls.append(1)
+        return orig(*a, **k)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    setattr(ops, name, count)
+    try:
+        step(params, opt_mod.init(params, ocfg), batch)
+    finally:
+        setattr(ops, name, orig)
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           device=cuda)
+    ops.reset_launches()
+    with check.CpuShadow(check.CpuShadow.TRAIN) as sh:
+        _, _, metrics = step(params, opt_mod.init(params, ocfg),
+                             {k: v.to(cuda) for k, v in batch.items()})
+    assert sh.stats[name]["calls"] == len(cpu_calls) > 0
+    assert ops.LAUNCHES[name] == sh.stats[name]["calls"]
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(
+        metrics["grad_norm"])
+
+
+# the families' training projections at full width (chip_smoke.py phase
+# 18, --batch 4 --seq 128): the MoE experts at their capacity (M = 160
+# and 40, a ragged tile of rows), the routers (N = 8, 16) and the mLSTM
+# gates (N = 4: a few columns of a tile, b staged byte by byte), whisper's
+# encoder and cross k/v (M = 6,000), internvl2's decoder over prefix and
+# tokens (M = 1,536; K = 28,672 takes the int32 sums to 1.86e9 of 2^31)
+# and its prefix projection (M = 1,024)
+FAMILY_TRAIN_SHAPES = [(160, 4096, 14336), (160, 14336, 4096),
+                       (40, 5120, 8192), (40, 8192, 5120), (512, 4096, 8),
+                       (512, 5120, 16), (512, 768, 4), (6000, 768, 768),
+                       (6000, 3072, 768), (1536, 28672, 8192),
+                       (1024, 3200, 8192)]
+
+
+@pytest.mark.parametrize("M,K,N", FAMILY_TRAIN_SHAPES)
+def test_training_kernels_at_the_families_shapes(cuda, M, K, N):
+    """lut_matmul asym_u8 (uint8 b, offset 0) and residual_matmul sym_i8
+    (int8 b, offset 128, rank 32) at the shape, weights drawn on the
+    card: each bit-exact / within RESID_TOL_REL of its plain version, two
+    launches bit-equal."""
+    case = check.lut_case(M, K, N, False, M + K + N, cuda, shifted=False,
+                          device_draw=True)
+    check.check_lut(case)
+    assert torch.equal(ops.lut_matmul(**case), ops.lut_matmul(**case))
+    del case
+    case = check.residual_case(M, K, N, True, 32, M + K + N, cuda,
+                               device_draw=True)
+    check.check_residual(case)
+    assert torch.equal(ops.residual_matmul(**case),
+                       ops.residual_matmul(**case))
+
+
 # ---------------------------------------------------------------------------
 # the biased table ('initial', asym_u8) and plan banks
 # ---------------------------------------------------------------------------
