@@ -22,13 +22,15 @@ delta_matmul and fused_qdot keep the delta table in 16 bits
 launches the kernel (or the wrapper raises on what the kernel does not
 take), a CPU tensor takes the plain version.  There is no fallback from
 one to the other.  ``LAUNCHES`` counts the kernel launches of each
-wrapper.
+wrapper; while tracing, each launch is also credited to the innermost
+open span of ``trace``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import trace
 from . import ref
 
 # kernel name -> number of launches in this process (reset_launches)
@@ -41,6 +43,13 @@ _LUT_CACHE: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _launched(name: str) -> None:
+    """Count one launch of kernel ``name``: in LAUNCHES and, while
+    tracing, in the innermost open span."""
+    LAUNCHES[name] += 1
+    trace.launched()
 
 
 def get_lut(design: str) -> np.ndarray:
@@ -288,7 +297,7 @@ def delta_matmul(a: torch.Tensor, b: torch.Tensor, dlut: torch.Tensor,
                        out.data_ptr(), M, K, N, offset, int(signed),
                        int(bool(unsigned)), int(bias), _stream())
     _raise_cuda(name, err)
-    LAUNCHES[name] += 1
+    _launched(name)
     return out
 
 
@@ -342,7 +351,7 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor,
                        out.data_ptr(), M, K, N, int(bool(unsigned)), offset,
                        _stream())
     _raise_cuda(name, err)
-    LAUNCHES[name] += 1
+    _launched(name)
     return out
 
 
@@ -389,7 +398,7 @@ def residual_matmul(a: torch.Tensor, b: torch.Tensor, F: torch.Tensor,
                        G.data_ptr(), table.data_ptr(), out.data_ptr(), M, K,
                        N, r, offset, int(b.dtype == torch.int8), _stream())
     _raise_cuda(name, err)
-    LAUNCHES[name] += 1
+    _launched(name)
     return out
 
 
@@ -597,7 +606,7 @@ def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
                        int(not signed), int(compensate), int(bool(unsigned)),
                        int(bias), _stream())
     _raise_cuda(name, err)
-    LAUNCHES[name] += 1
+    _launched(name)
     return (out, qx, acc) if return_int else out
 
 
@@ -738,7 +747,7 @@ def _attention_launch(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
         int(window or 0), int(qk_norm),
         int(row_out is None), _stream())
     _raise_cuda(name, err)
-    LAUNCHES[name] += 1
+    _launched(name)
     return out
 
 

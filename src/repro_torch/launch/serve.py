@@ -60,6 +60,11 @@ clamps) before any slot would write past the cache.
 Timing is steady state: the kernels are built and the steps warmed up
 first (reported on their own lines), and each timed region starts and
 ends with torch.cuda.synchronize().
+
+--trace-out PATH records the run's spans (repro_torch.trace: the prefill
+and decode steps, attention, each projection, the head; host and device
+time) and writes them to PATH as a Chrome trace (chrome://tracing,
+Perfetto).  It costs a CUDA event pair a span: time the run without it.
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ import time
 import numpy as np
 import torch
 
-from .. import configs
+from .. import configs, trace
 from ..device import resolve
 from ..models import transformer as T
 from ..quant import QuantConfig
@@ -180,6 +185,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "positions (finished slots re-prefill from the "
                          "queue)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="trace the run's steps and layers (host and "
+                         "device time) into a Chrome trace at PATH")
     return ap
 
 
@@ -443,7 +451,8 @@ def run(args, prepared: Prepared = None, enc_frames: int = ENC_FRAMES):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    r = run(args)
+    with trace.recording(args.trace_out):
+        r = run(args)
     B, P, G = args.requests, args.prompt_len, args.gen_len
     n_pre, n_dec = B * P, B * G
     dev = resolve(args.device)

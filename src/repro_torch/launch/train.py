@@ -32,6 +32,10 @@ multiplier.
     (the 16x16 and 2x16x16 production meshes, 256 and 512 devices) are
     refused at parse time: the port runs on one card (launch.dryrun
     analyses those meshes without devices).
+  * ``--trace-out PATH``: records the run's spans (repro_torch.trace: the
+    step, its backward and optimizer, each layer and its remat
+    recompute, attention, each projection, the head; host and device
+    time) and writes them to PATH as a Chrome trace.
 Float32 products run at full float32 precision (TF32 off), as the
 reference's HIGHEST precision.
 """
@@ -44,7 +48,7 @@ from typing import List
 
 import torch
 
-from .. import configs
+from .. import configs, trace
 from ..data import DataConfig, host_batch
 from ..device import resolve
 from ..models import transformer as T
@@ -83,6 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--straggler-factor", type=float, default=3.0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="trace the run's steps and layers (host and "
+                         "device time) into a Chrome trace at PATH")
     return ap
 
 
@@ -192,7 +199,9 @@ def _train(args: argparse.Namespace, cfg, dev: torch.device) -> TrainResult:
 
 def main(argv=None) -> float:
     """Run the launcher; returns the final loss."""
-    res = run(parse_args(argv))
+    args = parse_args(argv)
+    with trace.recording(args.trace_out):
+        res = run(args)
     loss = res.losses[-1] if res.losses else float("nan")
     print(f"[train] done at step {len(res.losses) + res.start}, final loss "
           f"{loss:.4f}")

@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..device import true_div
 from ..kernels import ops
 from ..kernels.ref import write_rows
@@ -102,6 +103,21 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
         else:
             k, v = cross_kv
 
+    with trace.span("model.attn_core"):
+        out, new_cache = _attention_core(
+            p, q, k, v, positions, cache, cross_kv, n_heads=n_heads,
+            n_kv=n_kv, head_dim=head_dim, causal=causal, window=window,
+            qk_norm=qk_norm, rope_theta=rope_theta)
+    return qdot(out, p["wo"], qcfg), new_cache
+
+
+def _attention_core(p, q, k, v, positions, cache, cross_kv, *, n_heads,
+                    n_kv, head_dim, causal, window, qk_norm, rope_theta):
+    """attention() between the q/k/v projections and wo: qk-norm, rope,
+    the cache write and the attention itself.  Returns (out (B, S, n_heads
+    * head_dim), new_cache)."""
+    B, S = q.shape[:2]
+    idx = cache["idx"] if cache is not None else None
     if cache is not None and S == 1 and cross_kv is None:
         # fused decode step: qk-norm + rope + masked single-query
         # attention in one kernel, then the cache append
@@ -111,7 +127,7 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
             rope_theta=rope_theta if rope_theta else 0.0, window=window,
             q_gain=p.get("q_norm") if qk_norm else None,
             k_gain=p.get("k_norm") if qk_norm else None)
-        return qdot(out, p["wo"], qcfg), {"k": ck, "v": cv, "idx": idx + S}
+        return out, {"k": ck, "v": cv, "idx": idx + S}
 
     if qk_norm:
         q = rmsnorm(q, p["q_norm"])
@@ -140,12 +156,12 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
         qpos = positions                  # (S,), or per-slot (B, S)
         kv_limit = idx + S
     elif positions is None:
-        qpos = torch.arange(S, device=x.device)
+        qpos = torch.arange(S, device=q.device)
         kv_limit = None
     else:
         qpos = positions if positions.ndim == 1 else positions[0]
         kv_limit = None
-    kpos = torch.arange(S_k, device=x.device)
+    kpos = torch.arange(S_k, device=q.device)
 
     def attend(q_blk, qpos_blk):
         """q_blk: (B, sq, n_kv, group, hd) -> (B, sq, n_kv, group, hd);
@@ -167,7 +183,7 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
                 m = kpos[None, :] <= qpos_blk[:, None]
             else:
                 m = torch.ones((q_blk.shape[1], S_k), dtype=torch.bool,
-                               device=x.device)
+                               device=q.device)
             if window is not None:
                 m = m & (kpos[None, :] > qpos_blk[:, None] - window)
             mb = m[None, None, None]
@@ -181,8 +197,7 @@ def attention(p, x, positions, qcfg: QuantConfig, *, n_heads: int,
                          for i in range(0, S, CHUNK)], 1)
     else:
         out = attend(qg, qpos)
-    out = out.reshape(B, S, n_heads * head_dim)
-    return qdot(out, p["wo"], qcfg), new_cache
+    return out.reshape(B, S, n_heads * head_dim), new_cache
 
 
 def make_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
@@ -237,6 +252,7 @@ def unembed(table, x, qcfg: QuantConfig):
     qcfg.quant_unembed, which routes it through qdot: the (vocab, D)
     table is not prequantized (is_dense_weight), so each call quantizes
     table.T dynamically, as the reference does."""
-    if not qcfg.quant_unembed:
-        return torch.matmul(x, table.T)
-    return qdot(x, table.T, qcfg)
+    with trace.span("model.head"):
+        if not qcfg.quant_unembed:
+            return torch.matmul(x, table.T)
+        return qdot(x, table.T, qcfg)

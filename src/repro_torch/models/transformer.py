@@ -49,6 +49,7 @@ from typing import Dict, Optional
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
+from .. import trace
 from ..configs import ArchConfig
 from ..device import resolve
 from ..quant import QuantConfig, qdot
@@ -350,11 +351,13 @@ def _train_stack(params, x, positions, cfg: ArchConfig, qcfg: QuantConfig,
                    if has_cross else [None] * cfg.n_units)
 
         def layer(lp, xp, h, ctx, kind=kind):
-            h = constrain(h, "batch", "seq_shard", None)
-            out, _, a = _block_apply(lp, h, positions, cfg, qcfg, kind)
-            out = constrain(out, "batch", "seq_shard", None)
-            if xp is not None:
-                out = _cross_block(xp, out, ctx, cfg, qcfg)
+            # opened again by remat's recompute in the backward pass
+            with trace.span("model.layer"):
+                h = constrain(h, "batch", "seq_shard", None)
+                out, _, a = _block_apply(lp, h, positions, cfg, qcfg, kind)
+                out = constrain(out, "batch", "seq_shard", None)
+                if xp is not None:
+                    out = _cross_block(xp, out, ctx, cfg, qcfg)
             return out, a
 
         for i, lp in enumerate(_unstack(params["units"][slot],

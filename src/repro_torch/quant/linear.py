@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import ops
 from .quantize import QuantConfig, quantize_int8, quantize_uint8
 
@@ -379,6 +380,11 @@ def qdot(x: torch.Tensor, w, cfg: QuantConfig) -> torch.Tensor:
     QuantizedWeight carrying cached weight quantization and/or
     calibrated static activation scales.
     """
+    with trace.span("quant.qdot"):
+        return _qdot(x, w, cfg)
+
+
+def _qdot(x: torch.Tensor, w, cfg: QuantConfig) -> torch.Tensor:
     pre = w if isinstance(w, QuantizedWeight) else None
     if pre is not None:
         w = pre.w

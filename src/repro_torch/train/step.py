@@ -8,6 +8,7 @@ import dataclasses
 
 import torch
 
+from .. import trace
 from ..configs import ArchConfig
 from ..device import true_div
 from ..models import layers
@@ -38,7 +39,8 @@ def _value_and_grad(loss_fn, params, batch):
     with torch.enable_grad():
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         loss, metrics = loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, tree_leaves(live))
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_unflatten(params, grads)
 
@@ -56,6 +58,10 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, ocfg: OptConfig,
     loss_fn = make_loss_fn(cfg, qcfg, remat, params_transform)
 
     def train_step(params, opt_state, batch):
+        with trace.span("train.step"):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if microbatches == 1:
             loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
         else:
@@ -76,9 +82,10 @@ def make_train_step(cfg: ArchConfig, qcfg: QuantConfig, ocfg: OptConfig,
                              grads)
             loss = true_div(loss_sum, float(microbatches))
             metrics = {"loss": loss}
-        # before the optimizer, which updates the grads in place
-        grad_norm = opt_mod.global_norm(grads)
-        params, opt_state = opt_mod.apply(params, grads, opt_state, ocfg)
+        with trace.span("train.optimizer"):
+            # before the optimizer, which updates the grads in place
+            grad_norm = opt_mod.global_norm(grads)
+            params, opt_state = opt_mod.apply(params, grads, opt_state, ocfg)
         metrics = dict(metrics, loss=loss, grad_norm=grad_norm)
         return params, opt_state, metrics
 
@@ -89,8 +96,10 @@ def make_serve_step(cfg: ArchConfig, qcfg: QuantConfig):
     """One batched decode step: (params, state, tokens) -> (next_tok,
     logits, state), greedy sampling included."""
     def serve_step(params, state, tokens):
-        logits, state = T.forward_decode(params, state, tokens, cfg, qcfg)
-        next_tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+        with trace.span("serve.step"):
+            logits, state = T.forward_decode(params, state, tokens, cfg,
+                                             qcfg)
+            next_tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
         return next_tok, logits, state
     return serve_step
 
@@ -104,9 +113,10 @@ def make_prefill_step(cfg: ArchConfig, qcfg: QuantConfig):
     qcfg_prefill = dataclasses.replace(qcfg, act_per_pos=True)
 
     def prefill_step(params, state, tokens):
-        logits, state = T.forward_decode(params, state, tokens, cfg,
-                                         qcfg_prefill)
-        next_tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
+        with trace.span("serve.prefill"):
+            logits, state = T.forward_decode(params, state, tokens, cfg,
+                                             qcfg_prefill)
+            next_tok = torch.argmax(logits[:, -1:], -1).to(torch.int32)
         return next_tok, logits, state
     return prefill_step
 
