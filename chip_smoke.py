@@ -15,8 +15,10 @@ error and carries on:
                csrc (one process per source, all at once); prints ptxas -v
   3. kernels   each kernel against its plain PyTorch version on the card,
                at the serving and training paths' full-width shapes and a
-               ragged shape: fused_qdot at M = 1..4 (split-K) and 256,
-               with and without compensation, two launches bit-equal;
+               ragged shape: fused_qdot at M = 1..4, 5 and 7 (split-K,
+               4 and 8 rows a thread), 70 and 256 (tile), and at
+               minitron-8b's four merged projections at M = 8, with
+               and without compensation, two launches bit-equal;
                lut_matmul pre-shifted, through the offset and on three
                operand patterns; decode_attention at the path's cases,
                at long context (S_max 4096), on both sides of every chunk
@@ -101,7 +103,9 @@ error and carries on:
                quantized unembed's (K = 2048, N = 151,936, M = 4 and 256:
                ``unembed``); lut_matmul, residual_matmul and delta_matmul
                also at the merged projections' serve shapes (M = 4 and
-               256: ``serve``); the three serving kernels at the MoE
+               256: ``serve``); fused_qdot also at minitron-8b's four
+               merged projections at M = 8 (``minitron_decode``, the
+               benchmark's decode step); the three serving kernels at the MoE
                family's shapes (``moe``, per config) and the other
                families' (``families``, per config: every distinct serve
                projection at M = 4 and 256, every calibration
@@ -282,6 +286,11 @@ RANK = 32                        # QuantConfig.rank, the launcher's default
 # embedding; mixtral fits 4, and runs 2 for time); one layer is the
 # pattern's whole period ("moe",)
 MOE_RUNS = (("mixtral-8x7b", 2), ("llama4-scout-17b-a16e", 2))
+# minitron-8b's merged projections as the benchmark serves it (48 query
+# heads of 128, 8 kv groups, d_ff 16,384, relu2: no gate); its decode
+# step runs fused_qdot at M = 8 on each
+MINITRON_MERGED = (("wqkv", 4096, 8192), ("wo", 6144, 4096),
+                   ("w_up", 4096, 16384), ("w_down", 16384, 4096))
 # phase 13's parity: a launch of more gathers than this is held against
 # its plain version on the card, not on the CPU (the experts, the merged
 # attention and the shared expert at full width)
@@ -454,26 +463,34 @@ def check_kernels(cfg, dev):
                                ops.delta_matmul(**case)), "not repeatable"
             log(f"[kernels] delta_matmul {mode} {name} M={M} K={K} N={N}: "
                 f"bit-exact, two launches bit-equal")
-        # decode (M = B and below: the split-K schedule) and prefill
-        # (M = B*P: the tile schedule), with and without compensation
-        for i, (name, K, N) in enumerate(merged + [("ragged", 77, 131)]):
-            for M in ((1, 2, 3, 70) if name == "ragged"
-                      else (1, 2, 3, B, B * P)):
-                for comp in (True, False):
-                    case = check.fused_case(M, K, N, signed, 100 + i, dev,
-                                            compensate=comp)
-                    r = check.check_fused(case)
-                    first = ops.fused_qdot_packed(**case, return_int=True)
-                    again = ops.fused_qdot_packed(**case, return_int=True)
-                    assert all(torch.equal(x, y) for x, y in
-                               zip(first, again)), "fused_qdot not repeatable"
-                    errs["fused_qdot"] = max(errs["fused_qdot"],
-                                             r["max_abs_err"])
-                    log(f"[kernels] fused_qdot {mode} {name} M={M} K={K} "
-                        f"N={N} compensate={comp}: qx, acc bit-exact; max "
-                        f"|err| {r['max_abs_err']:.3e} "
-                        f"({r['max_rel_err']:.3e} of max |y|); two launches "
-                        f"bit-equal")
+        # decode (M <= 8: the split-K schedule, 4 rows a thread up to M =
+        # 4, 8 above; minitron-8b's M = 8 at its merged projections) and
+        # prefill (M = B*P and 70: the tile schedule), with and without
+        # compensation
+        cases = [(name, M, K, N, 100 + i)
+                 for i, (name, K, N) in enumerate(merged)
+                 for M in (1, 2, 3, B, B * P)]
+        cases += [("ragged", M, 77, 131, 100 + len(merged))
+                  for M in (1, 2, 3, 5, 7, 70)]
+        cases += [(f"minitron-8b {name}", 8, K, N, 150 + i)
+                  for i, (name, K, N) in enumerate(MINITRON_MERGED)]
+        for name, M, K, N, seed in cases:
+            for comp in (True, False):
+                case = check.fused_case(M, K, N, signed, seed, dev,
+                                        compensate=comp)
+                r = check.check_fused(case)
+                first = ops.fused_qdot_packed(**case, return_int=True)
+                again = ops.fused_qdot_packed(**case, return_int=True)
+                assert all(torch.equal(x, y) for x, y in
+                           zip(first, again)), "fused_qdot not repeatable"
+                errs["fused_qdot"] = max(errs["fused_qdot"],
+                                         r["max_abs_err"])
+                log(f"[kernels] fused_qdot {mode} {name} M={M} K={K} "
+                    f"N={N} compensate={comp}: qx, acc bit-exact; max "
+                    f"|err| {r['max_abs_err']:.3e} "
+                    f"({r['max_rel_err']:.3e} of max |y|); two launches "
+                    f"bit-equal")
+            del case, first, again
     errs["decode_attention"] = check_attention_cases(cfg, dev)
     check_biased_and_banks(cfg, dev)
     return errs
@@ -1872,10 +1889,10 @@ def check_family_kernels(dev, errs):
     every calibration projection and fused_qdot at every serve projection
     (M = B, both modes; the mLSTM gates' N = 4, nemotron's K = 73,728,
     the recurrent D x D and D x R), the int32 range at K = 73,728 through
-    both kernels on both schedules (held also against the CPU's plain
-    version), and decode_attention at query groups 12 (hd 192), 10 (hd
-    256, Kv = 1, window 2048) and 16/16 (family_attention_cases).  Folds
-    the max errors into ``errs``."""
+    both kernels on every schedule (fused_qdot at M = 4, 5 and 9; held
+    also against the CPU's plain version), and decode_attention at query
+    groups 12 (hd 192), 10 (hd 256, Kv = 1, window 2048) and 16/16
+    (family_attention_cases).  Folds the max errors into ``errs``."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import check
@@ -1909,7 +1926,7 @@ def check_family_kernels(dev, errs):
             log(f"[kernels] delta_matmul int32 range {design} M={M} "
                 f"K={check.RANGE_K} N=40: {r['past_2_31']} outputs past "
                 f"2^31, bit-exact (card plain == CPU plain)")
-    for M in (4, 5):
+    for M in (4, 5, 9):
         for comp in (False, True):
             r = check.check_range(check.range_fused_case(M, 40, M, dev,
                                                          compensate=comp),
@@ -2815,6 +2832,18 @@ def time_kernels(cfg, dev):
                            bound_by=rs[0]["bound_by"],
                            max_abs_err=max(r["max_abs_err"] for r in rs))
             for M, rs in by_m.items()}}
+    # fused_qdot at minitron-8b's decode step (M = 8, asym_u8 with
+    # compensation: the split-K schedule at 8 rows a thread)
+    m8 = {}
+    for i, (name, K, N) in enumerate(MINITRON_MERGED):
+        c = check.fused_case(8, K, N, False, 860 + i, dev)
+        err = check.check_fused(c)["max_abs_err"]
+        r = row("fused_qdot", f"minitron-8b {name} M=8 K={K} N={N}",
+                lambda: ops.fused_qdot_packed(**c), 50,
+                cuda_time(lambda: check.fused_plain(c), 3),
+                fused_bound(8, K, N), gathers=8 * K * N, b=c["qw"])
+        m8[f"{name} M=8"] = dict(r, max_abs_err=err)
+    serve_rows["fused_qdot"] = {"minitron_decode": m8}
     K, N = cfg.d_model, cfg.vocab
     serve_rows["delta_matmul"]["unembed"] = {
         f"M={M}": held_row("delta_matmul", f"unembed M={M} K={K} N={N}", M,
@@ -2837,7 +2866,9 @@ def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
     runs, the max error of phase 3 and the timings of phase 8 (for
     delta_matmul also its planned-QAT shape, ``plan_qat``, and the
     quantized unembed's, ``unembed``; for the three product kernels the
-    merged projections of phase 12 (c), ``serve``; for the three serving
+    merged projections of phase 12 (c), ``serve``; for fused_qdot
+    minitron-8b's merged projections at M = 8, ``minitron_decode``, with
+    no launches of a path of their own; for the three serving
     kernels the MoE family's shapes, ``moe``, and phase 14's,
     ``families``, per config; phase 15's, ``encdec_vlm``, per config:
     whisper-small's three serving kernels and internvl2-76b's
@@ -2874,7 +2905,7 @@ def kernels_json(summary, plan_qat, serve_rows, moe_rows, launches,
                 "bound_by": qrs[0]["bound_by"]}
         for sub, by_m in serve_rows.get(name, {}).items():
             kernels[-1][sub] = {
-                "launches": launches[f"{name}_{sub}"],
+                "launches": launches.get(f"{name}_{sub}"),
                 **{m: {k: r[k] for k in keys if k in r}
                    for m, r in by_m.items()}}
         for sub, sub_rows, sub_launches in (

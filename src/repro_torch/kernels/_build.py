@@ -34,7 +34,7 @@ SIGNATURES = {
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fused_qdot": ("fused_qdot_launch",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                    _I, _I, _I, _I, _I, _I, _I, _P]),
+                    _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "decode_attention": ("decode_attention_launch",
                          [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _P,
                           _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

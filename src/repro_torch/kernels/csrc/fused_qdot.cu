@@ -18,22 +18,31 @@
 //     int32 accumulator and the tiles' arrival counts.
 //  2. the gather, with the table in shared memory (one bulk copy on an
 //     mbarrier per CTA, overlapping the first operand loads) and the
-//     operand bytes staged 64 deep by cp.async into a double buffer, the
-//     next step loading while the current one is gathered.  The gathers
-//     are gather_loop.cuh's loop; the exact part qx*qw is one dp4a per 4
-//     terms.  Two schedules:
-//      * M > 4 (tile_kernel, prefill): a persistent grid of at most one
+//     operand bytes staged 64 or 128 deep by cp.async into a double
+//     buffer, the next step loading while the current one is gathered.
+//     The gathers are gather_loop.cuh's loop; the exact part qx*qw is one
+//     dp4a per 4 terms.  Two schedules, chosen by M alone:
+//      * M > 8 (tile_kernel, prefill): a persistent grid of at most one
 //        CTA per SM walks output tiles of 32 rows x 128 columns; each of
 //        the 512 threads sums 8 rows of one column and applies the
 //        dequant epilogue to its accumulators before the one store.
-//      * M <= 4 (splitk_kernel, decode): N/128 tiles of 4 rows would leave
-//        most of the 132 SMs idle, so the (128-column tile, 64-deep k
-//        chunk) units are split evenly over one CTA per SM (stream-K,
-//        async_copy.cuh), as delta_matmul does.  Each CTA adds its int32
-//        partials into the accumulator with atomicAdd, then adds the
-//        number of chunks it brought to the tile's arrival count; the CTA
-//        that brings the last chunk runs the epilogue on the whole sum
-//        (the threadfence reduction pattern).
+//      * M <= 8 (splitk_kernel, decode): N/128 tiles of one row group
+//        would leave most of the 132 SMs idle (minitron-8b's w_down at M
+//        = 8: 32 CTAs, 4 of each one's 16 warps gathering), so the
+//        (128-column tile, k chunk) units are split evenly over one CTA
+//        per SM (stream-K, async_copy.cuh), as delta_matmul does.  Each
+//        of the CTA's 4 thread groups takes a quarter of a chunk's k for
+//        the tile's 128 columns and R rows: R = 4 and 64-deep chunks at M
+//        <= 4, R = 8 and 128-deep chunks at M 5-8, so each staged b byte
+//        serves 8 gathers and a thread makes 256 gathers between two
+//        __syncthreads.  At M = 8 minitron-8b's four merged projections
+//        take 0.742 ms a layer on an H100 at 700 W against the tile
+//        schedule's 1.966-1.980 (uniform random operands; 64-deep chunks
+//        0.786-0.788, 256-deep 0.715).  Each CTA adds its int32 partials
+//        into the accumulator with atomicAdd, then adds the number of
+//        chunks it brought to the tile's arrival count; the CTA that
+//        brings the last chunk runs the epilogue on the whole sum (the
+//        threadfence reduction pattern).
 //
 // Where the numbers can go wrong, and what this file does about it:
 //  * Rounding mode: CUDA's roundf rounds half away from zero, jnp.round
@@ -92,22 +101,40 @@ constexpr int kTM = kGroups * kRPT;         // 32
 constexpr int kStageA = kTM * kTK;
 constexpr int kTileSmem = gl::kTableBytes + 2 * kStageA + 2 * kStageB + 16;
 
-// splitk_kernel: 4 rows; thread group g takes k [16g, 16g + 16) of each
-// 64-deep chunk for the tile's 128 columns
+// splitk_kernel: M <= kSplitMaxRows takes the split-K schedule, with R =
+// kSmallR rows for M <= 4 and R = kSplitMaxRows for 5 <= M <= 8.  A unit is
+// one 128-column tile's UK-deep k chunk; thread group g takes k
+// [g UK/4, (g + 1) UK/4) of it for the tile's 128 columns and R rows.
 constexpr int kSmallR = 4;
-constexpr int kKPerGroup = kTK / kGroups;
-constexpr int kSmallA = kSmallR * kTK;
-// table, a and b double buffers, the groups' partials, a flag, mbarrier
-constexpr int kSmallSmem = gl::kTableBytes + 2 * kSmallA + 2 * kStageB
-    + kGroups * kSmallR * kTN * 4 + 16 + 16;
-static_assert(kGroups == kSmallR, "one reducing thread an output");
+constexpr int kSplitMaxRows = 8;            // ops.FUSED_SPLIT_MAX_ROWS
+constexpr int kSplitDepth4 = 64;            // UK at R = 4
+constexpr int kSplitDepth8 = 128;           // UK at R = 8
+
+template <int R, int UK>
+struct Split {
+  static_assert(R % kGroups == 0, "R / kGroups outputs a reducing thread");
+  static_assert(UK % kTK == 0, "a unit is whole 64-deep b stages");
+  static constexpr int kA = R * UK;         // a bytes of a unit
+  static constexpr int kB = UK * kTN;       // b bytes of a unit
+  static constexpr int kKPerGroup = UK / kGroups;
+  // table, a and b double buffers, the groups' partials, a flag, mbarrier
+  static constexpr int kSmem = gl::kTableBytes + 2 * kA + 2 * kB
+      + kGroups * R * kTN * 4 + 16 + 16;
+  static_assert(kSmem <= 232448, "over a block's shared memory opt-in");
+};
 
 constexpr int kQThreads = 256;              // quantize_rows
 
+// The schedule M takes: the split-K schedule's rows a thread (kSmallR or
+// kSplitMaxRows), or 0 for the tile schedule.
+inline int split_rows(int M) {
+  return M <= kSmallR ? kSmallR : M <= kSplitMaxRows ? kSplitMaxRows : 0;
+}
+
 // Byte layout of the caller's scratch (ops.fused_scratch_layout mirrors
 // it): qx bytes (M rows of kp), rowsum(qx) int32 (M), rowsum(mu_r) f32
-// (M); for M <= 4 also the int32 accumulator (M, N) and the tiles'
-// arrival counts.  Each part starts 16-byte aligned.
+// (M); for M <= kSplitMaxRows also the int32 accumulator (M, N) and the
+// tiles' arrival counts.  Each part starts 16-byte aligned.
 struct Layout {
   long long kp, rs, rc, acc, cnt, bytes;
   bool splitk;
@@ -120,7 +147,7 @@ __host__ __device__ inline long long up16(long long v) {
 inline Layout layout(int M, int K, int N) {
   Layout L;
   L.kp = K > 16 ? up16(K) : 16;
-  L.splitk = M <= kSmallR;
+  L.splitk = split_rows(M) > 0;
   L.rs = up16((long long)M * L.kp);
   L.rc = up16(L.rs + 4LL * M);
   L.acc = up16(L.rc + 4LL * M);
@@ -244,16 +271,17 @@ __device__ __forceinline__ void stage_b(const Args& g, uint8_t* Bd, int k0,
   }
 }
 
-// rows x 64 a bytes of the step at (m0, k0) into Ad (row pitch kTK); the
-// scratch rows are kp bytes, a multiple of 16 padded with zeros
+// rows x depth a bytes of the step at (m0, k0) into Ad (row pitch depth,
+// a multiple of 16); the scratch rows are kp bytes, a multiple of 16
+// padded with zeros
 __device__ __forceinline__ void stage_a(const Args& g, uint8_t* Ad, int rows,
-                                        int m0, int k0) {
+                                        int depth, int m0, int k0) {
   const int tid = threadIdx.x;
-  if (tid < rows * (kTK / 16)) {
-    const int r = tid / (kTK / 16), c = (tid % (kTK / 16)) * 16;
+  if (tid < rows * (depth / 16)) {
+    const int r = tid / (depth / 16), c = (tid % (depth / 16)) * 16;
     const int m = m0 + r, k = k0 + c;
     const bool in = m < g.M && k < g.kp;
-    ac::cp16(Ad + r * kTK + c, in ? g.qb + (size_t)m * g.kp + k : g.qb, in);
+    ac::cp16(Ad + r * depth + c, in ? g.qb + (size_t)m * g.kp + k : g.qb, in);
   }
 }
 
@@ -289,7 +317,7 @@ tile_kernel(const Args g, int tiles_n, int n_tiles) {
   auto stage = [&](int s, int buf) {
     int m0, n0, k0;
     origin(s, m0, n0, k0);
-    stage_a(g, As + buf * kStageA, kTM, m0, k0);
+    stage_a(g, As + buf * kStageA, kTM, kTK, m0, k0);
     stage_b(g, Bs + buf * kStageB, k0, n0);
     ac::commit();
   };
@@ -331,14 +359,16 @@ tile_kernel(const Args g, int tiles_n, int n_tiles) {
   }
 }
 
-template <bool ASYM, bool COMP, bool U16>
+template <int R, int UK, bool ASYM, bool COMP, bool U16>
 __global__ void __launch_bounds__(kThreads, 1)
 splitk_kernel(const Args g, ac::StreamK sk) {
+  using S = Split<R, UK>;
+  constexpr int kOuts = R / kGroups;              // outputs a thread adds
   extern __shared__ __align__(128) unsigned char smem[];
-  uint8_t* As = smem + gl::kTableBytes;           // [2][4][kTK]
-  uint8_t* Bs = As + 2 * kSmallA;                 // [2][kTK][kTN]
-  int32_t* Red = reinterpret_cast<int32_t*>(Bs + 2 * kStageB);
-  int* last = reinterpret_cast<int*>(Red + kGroups * kSmallR * kTN);
+  uint8_t* As = smem + gl::kTableBytes;           // [2][R][UK]
+  uint8_t* Bs = As + 2 * S::kA;                   // [2][UK][kTN]
+  int32_t* Red = reinterpret_cast<int32_t*>(Bs + 2 * S::kB);
+  int* last = reinterpret_cast<int*>(Red + kGroups * R * kTN);
   uint64_t* bar = reinterpret_cast<uint64_t*>(last + 4);
   const uint32_t tab = ac::smem_addr(smem);
   constexpr int off = ASYM ? 0 : 128;
@@ -354,15 +384,17 @@ splitk_kernel(const Args g, ac::StreamK sk) {
 
   auto stage = [&](long long u, int buf) {
     const int n0 = (int)(u / sk.chunks) * kTN;
-    const int k0 = (int)(u % sk.chunks) * kTK;
-    stage_a(g, As + buf * kSmallA, kSmallR, 0, k0);
-    stage_b(g, Bs + buf * kStageB, k0, n0);
+    const int k0 = (int)(u % sk.chunks) * UK;
+    stage_a(g, As + buf * S::kA, R, UK, 0, k0);
+#pragma unroll
+    for (int j = 0; j < UK / kTK; ++j)
+      stage_b(g, Bs + buf * S::kB + j * kStageB, k0 + j * kTK, n0);
     ac::commit();
   };
 
-  int acc[kSmallR];
+  int acc[R];
 #pragma unroll
-  for (int r = 0; r < kSmallR; ++r) acc[r] = 0;
+  for (int r = 0; r < R; ++r) acc[r] = 0;
   const float kf = (float)g.K;
 
   if (u0 < u1) stage(u0, 0);
@@ -374,33 +406,36 @@ splitk_kernel(const Args g, ac::StreamK sk) {
     if (u == u0) ac::bar_wait(bar, 0);
     __syncthreads();
     const int tile = (int)(u / sk.chunks);
-    const int k0 = (int)(u % sk.chunks) * kTK;
-    const int kb = grp * kKPerGroup;
-    const int kn = min(kKPerGroup, g.K - k0 - kb);
+    const int k0 = (int)(u % sk.chunks) * UK;
+    const int kb = grp * S::kKPerGroup;
+    const int kn = min(S::kKPerGroup, g.K - k0 - kb);
     if (kn > 0)
-      gl::gather_run<kSmallR, U16, kExact>(
-          tab, As + buf * kSmallA + kb, kTK,
-          Bs + buf * kStageB + kb * kTN + col, kTN, kn, axor, off, acc);
+      gl::gather_run<R, U16, kExact>(
+          tab, As + buf * S::kA + kb, UK,
+          Bs + buf * S::kB + kb * kTN + col, kTN, kn, axor, off, acc);
     if (u + 1 == u1 || (u + 1) % sk.chunks == 0) {
       // the end of this CTA's run of the tile: the groups' partials meet
-      // in shared memory, one thread an output adds them into the
-      // accumulator
+      // in shared memory, and each thread adds kOuts outputs (rows grp,
+      // grp + kGroups, ...) into the accumulator
 #pragma unroll
-      for (int r = 0; r < kSmallR; ++r) {
-        Red[(grp * kSmallR + r) * kTN + col] = acc[r];
+      for (int r = 0; r < R; ++r) {
+        Red[(grp * R + r) * kTN + col] = acc[r];
         acc[r] = 0;
       }
       __syncthreads();
-      const int m = grp;                     // kGroups == kSmallR rows
       const int n = tile * kTN + col;
-      const bool mine = m < g.M && n < g.N;
-      int32_t* p = g.acc + (size_t)m * g.N + n;
-      if (mine) {
-        int sum = 0;
+      bool mine[kOuts];
 #pragma unroll
-        for (int q = 0; q < kGroups; ++q)
-          sum += Red[(q * kSmallR + m) * kTN + col];
-        atomicAdd(p, sum);
+      for (int j = 0; j < kOuts; ++j) {
+        const int m = grp + j * kGroups;
+        mine[j] = m < g.M && n < g.N;
+        if (mine[j]) {
+          int sum = 0;
+#pragma unroll
+          for (int q = 0; q < kGroups; ++q)
+            sum += Red[(q * R + m) * kTN + col];
+          atomicAdd(g.acc + (size_t)m * g.N + n, sum);
+        }
       }
       __threadfence();                       // the adds before the count
       __syncthreads();
@@ -412,11 +447,17 @@ splitk_kernel(const Args g, ac::StreamK sk) {
       __syncthreads();
       if (*last) {                           // every chunk is in: epilogue
         __threadfence();
-        if (mine) {
-          const int v = *reinterpret_cast<volatile int32_t*>(p) - g.kbias;
-          g.out[(size_t)m * g.N + n] = dequant<ASYM, COMP>(
-              v, g.rsum[m], g.rcomp[m], g.scal, g.ntab, n, g.N, kf);
-          if (g.acc_out != nullptr) g.acc_out[(size_t)m * g.N + n] = v;
+#pragma unroll
+        for (int j = 0; j < kOuts; ++j) {
+          const int m = grp + j * kGroups;
+          if (mine[j]) {
+            const size_t i = (size_t)m * g.N + n;
+            const int v =
+                *reinterpret_cast<volatile int32_t*>(g.acc + i) - g.kbias;
+            g.out[i] = dequant<ASYM, COMP>(v, g.rsum[m], g.rcomp[m],
+                                           g.scal, g.ntab, n, g.N, kf);
+            if (g.acc_out != nullptr) g.acc_out[i] = v;
+          }
         }
       }
     }
@@ -431,8 +472,22 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
+template <int R, int UK, bool ASYM, bool COMP, bool U16>
+cudaError_t launch_split(const Args& g, int tiles_n, int sms,
+                         cudaStream_t stream) {
+  auto kern = splitk_kernel<R, UK, ASYM, COMP, U16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Split<R, UK>::kSmem);
+  if (err != cudaSuccess) return err;
+  const ac::StreamK sk = ac::stream_k(
+      tiles_n, g.K > 0 ? (g.K + UK - 1) / UK : 1, sms);
+  kern<<<sk.grid, kThreads, Split<R, UK>::kSmem, stream>>>(g, sk);
+  return cudaSuccess;
+}
+
 template <bool ASYM, bool COMP, bool U16>
-cudaError_t run(const Args& g, long long nzero, cudaStream_t stream) {
+cudaError_t run(const Args& g, long long nzero, int rows,
+                cudaStream_t stream) {
   quantize_rows<ASYM, COMP><<<g.M, kQThreads, 0, stream>>>(
       g.x, g.scal, g.comp_r, g.qb, g.qx_out, g.rsum, g.rcomp, g.acc, nzero,
       g.K, g.kp);
@@ -441,14 +496,12 @@ cudaError_t run(const Args& g, long long nzero, cudaStream_t stream) {
   int sms = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return err;
   const int tiles_n = (g.N + kTN - 1) / kTN;
-  if (g.M <= kSmallR) {
-    auto kern = splitk_kernel<ASYM, COMP, U16>;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmallSmem);
-    if (err != cudaSuccess) return err;
-    const ac::StreamK sk = ac::stream_k(
-        tiles_n, g.K > 0 ? (g.K + kTK - 1) / kTK : 1, sms);
-    kern<<<sk.grid, kThreads, kSmallSmem, stream>>>(g, sk);
+  if (rows == kSmallR) {
+    err = launch_split<kSmallR, kSplitDepth4, ASYM, COMP, U16>(
+        g, tiles_n, sms, stream);
+  } else if (rows == kSplitMaxRows) {
+    err = launch_split<kSplitMaxRows, kSplitDepth8, ASYM, COMP, U16>(
+        g, tiles_n, sms, stream);
   } else {
     auto kern = tile_kernel<ASYM, COMP, U16>;
     err = cudaFuncSetAttribute(
@@ -458,6 +511,7 @@ cudaError_t run(const Args& g, long long nzero, cudaStream_t stream) {
     kern<<<n_tiles < sms ? n_tiles : sms, kThreads, kTileSmem, stream>>>(
         g, tiles_n, n_tiles);
   }
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -472,16 +526,20 @@ cudaError_t run(const Args& g, long long nzero, cudaStream_t stream) {
 // (null to skip).  scratch: scratch_bytes of device memory, 16-byte
 // aligned, at least ops.fused_scratch_layout(M, K, N)["bytes"]; refused
 // (cudaErrorInvalidValue) when smaller.  All row-major and contiguous.
-// Returns the cudaError_t of the launches.
+// rows_out (optional int) receives the schedule launched: the split-K
+// schedule's rows a thread (4 or 8), 0 for the tile schedule.  Returns
+// the cudaError_t of the launches.
 extern "C" int fused_qdot_launch(const void* x, const void* qw,
                                  const void* dlut, const void* scal,
                                  const void* ntab, const void* comp_r,
                                  void* out, void* qx_out, void* acc_out,
                                  void* scratch, long long scratch_bytes,
                                  int M, int K, int N, int asym, int compensate,
-                                 int u16, int bias, void* stream) {
+                                 int u16, int bias, int* rows_out,
+                                 void* stream) {
   if (u16 ? !asym : bias != 0) return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return 0;
+  const int rows = split_rows(M);
   const Layout L = layout(M, K, N);
   if (scratch_bytes < L.bytes) return (int)cudaErrorInvalidValue;
   auto base = static_cast<uint8_t*>(scratch);
@@ -512,13 +570,14 @@ extern "C" int fused_qdot_launch(const void* x, const void* qw,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (asym && u16)
-    err = compensate ? run<true, true, true>(g, nzero, s)
-                     : run<true, false, true>(g, nzero, s);
+    err = compensate ? run<true, true, true>(g, nzero, rows, s)
+                     : run<true, false, true>(g, nzero, rows, s);
   else if (asym)
-    err = compensate ? run<true, true, false>(g, nzero, s)
-                     : run<true, false, false>(g, nzero, s);
+    err = compensate ? run<true, true, false>(g, nzero, rows, s)
+                     : run<true, false, false>(g, nzero, rows, s);
   else
-    err = compensate ? run<false, true, false>(g, nzero, s)
-                     : run<false, false, false>(g, nzero, s);
+    err = compensate ? run<false, true, false>(g, nzero, rows, s)
+                     : run<false, false, false>(g, nzero, rows, s);
+  if (err == cudaSuccess && rows_out != nullptr) *rows_out = rows;
   return (int)err;
 }

@@ -7,7 +7,7 @@ Five kernels, each written by hand in CUDA C++ for Hopper
                     over every SM for M <= 4)
   fused_qdot        static activation quantization (a pre-pass, once per
                     row) + the delta product + the dequant epilogue
-                    (split-K over every SM for M <= 4)
+                    (split-K over every SM for M <= 8)
   decode_attention  qk-norm + rope + bf16 row rounding + masked GQA
                     attention, one decode step, split over the cache
                     positions (ops.attention_chunks), the cache append
@@ -23,9 +23,13 @@ launches the kernel (or the wrapper raises on what the kernel does not
 take), a CPU tensor takes the plain version.  There is no fallback from
 one to the other.  ``LAUNCHES`` counts the kernel launches of each
 wrapper; while tracing, each launch is also credited to the innermost
-open span of ``trace``.
+open span of ``trace``.  ``SCHEDULES`` counts the schedule that each
+fused_qdot call on the card launched, as its launcher reports it.
 """
 from __future__ import annotations
+
+import ctypes
+from collections import Counter
 
 import numpy as np
 import torch
@@ -36,6 +40,12 @@ from . import ref
 # kernel name -> number of launches in this process (reset_launches)
 LAUNCHES = {"delta_matmul": 0, "fused_qdot": 0, "decode_attention": 0,
             "lut_matmul": 0, "residual_matmul": 0}
+# "fused_qdot.<schedule>" -> calls on the card, by the schedule the C
+# launcher reports it launched: splitk4, splitk8 (the split-K schedule at
+# 4 and 8 rows a thread) or tile
+SCHEDULES: Counter = Counter()
+_FUSED_SCHEDULES = {4: "fused_qdot.splitk4", 8: "fused_qdot.splitk8",
+                    0: "fused_qdot.tile"}
 
 _LUT_CACHE: dict = {}
 
@@ -43,6 +53,7 @@ _LUT_CACHE: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SCHEDULES.clear()
 
 
 def _launched(name: str) -> None:
@@ -205,8 +216,12 @@ def delta_table(design: str, signed: bool, device):
     return _LUT_CACHE[key]
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, from torch's own
+    binding: torch.cuda.current_stream() builds a Stream object first,
+    about 8 µs of host time a call on an H100 host against 0.1 (a decode
+    step launches 160-600 kernels)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -295,7 +310,7 @@ def delta_matmul(a: torch.Tensor, b: torch.Tensor, dlut: torch.Tensor,
     from ._build import kernel
     err = kernel(name)(a.data_ptr(), b.data_ptr(), dlut.data_ptr(),
                        out.data_ptr(), M, K, N, offset, int(signed),
-                       int(bool(unsigned)), int(bias), _stream())
+                       int(bool(unsigned)), int(bias), _stream(a.device))
     _raise_cuda(name, err)
     _launched(name)
     return out
@@ -349,7 +364,7 @@ def lut_matmul(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor,
     from ._build import kernel
     err = kernel(name)(a.data_ptr(), b.data_ptr(), lut.data_ptr(),
                        out.data_ptr(), M, K, N, int(bool(unsigned)), offset,
-                       _stream())
+                       _stream(a.device))
     _raise_cuda(name, err)
     _launched(name)
     return out
@@ -396,7 +411,8 @@ def residual_matmul(a: torch.Tensor, b: torch.Tensor, F: torch.Tensor,
     from ._build import kernel
     err = kernel(name)(a.data_ptr(), b.data_ptr(), F.data_ptr(),
                        G.data_ptr(), table.data_ptr(), out.data_ptr(), M, K,
-                       N, r, offset, int(b.dtype == torch.int8), _stream())
+                       N, r, offset, int(b.dtype == torch.int8),
+                       _stream(a.device))
     _raise_cuda(name, err)
     _launched(name)
     return out
@@ -526,21 +542,27 @@ def _up16(v: int) -> int:
     return (v + 15) // 16 * 16
 
 
+# the most rows fused_qdot's split-K schedule takes (kSplitMaxRows in
+# csrc/fused_qdot.cu): 4 rows a thread at M <= 4, 8 at 5 <= M <= 8;
+# more rows take the 32 x 128 tile schedule
+FUSED_SPLIT_MAX_ROWS = 8
+
+
 def fused_scratch_layout(M: int, K: int, N: int) -> dict:
     """Byte offsets of the fused kernel's device scratch (the layout of
     ``Layout`` in csrc/fused_qdot.cu, which refuses a smaller scratch):
     the quantized activations as bytes, M rows of ``kp`` (K padded to a
     multiple of 16), then rowsum(qx) int32 (M) at ``rs`` and
-    rowsum(mu_r[qx]) float32 (M) at ``rc``; at M <= 4 (the split-K
-    schedule) also the int32 accumulator (M, N) at ``acc`` and one
-    arrival count per 128-column tile at ``cnt``.  ``bytes`` is the
-    total."""
+    rowsum(mu_r[qx]) float32 (M) at ``rc``; at M <= FUSED_SPLIT_MAX_ROWS
+    (the split-K schedule) also the int32 accumulator (M, N) at ``acc``
+    and one arrival count per 128-column tile at ``cnt``.  ``bytes`` is
+    the total."""
     kp = _up16(K) if K > 16 else 16
     rs = _up16(M * kp)
     rc = _up16(rs + 4 * M)
     acc = _up16(rc + 4 * M)
     cnt = _up16(acc + 4 * M * N)
-    splitk = M <= 4
+    splitk = M <= FUSED_SPLIT_MAX_ROWS
     total = cnt + 4 * ((N + 127) // 128) if splitk else acc
     return {"kp": kp, "rs": rs, "rc": rc, "acc": acc, "cnt": cnt,
             "splitk": splitk, "bytes": total}
@@ -556,8 +578,9 @@ def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
     as narrow_delta narrows it (see delta_matmul).  ``return_int`` also
     returns the quantized activations (M, K) and the int32 accumulator
     (M, N).  On the card one call is two launches, the quantize pre-pass
-    and the gather (split-K at M <= 4), into a scratch allocated here
-    (fused_scratch_layout); it counts as one launch of the kernel."""
+    and the gather (split-K at M <= 8), into a scratch allocated here
+    (fused_scratch_layout); it counts as one launch of the kernel and
+    one of the schedule the launcher reports in SCHEDULES."""
     offset = 128 if signed else 0
     if x.device.type == "cpu":
         return ref.fused_qdot_ref(x, qw, widen_delta(dlut, unsigned, bias),
@@ -597,6 +620,7 @@ def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
         acc = torch.empty((M, N), dtype=torch.int32, device=x.device)
     nbytes = fused_scratch_layout(M, K, N)["bytes"]
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
+    rows = ctypes.c_int(-1)
     from ._build import kernel
     err = kernel(name)(x.data_ptr(), qw.data_ptr(), dlut.data_ptr(),
                        scal.data_ptr(), ntab.data_ptr(), comp_r.data_ptr(),
@@ -604,9 +628,11 @@ def fused_qdot_packed(x: torch.Tensor, qw: torch.Tensor, dlut: torch.Tensor,
                        acc.data_ptr() if return_int else None,
                        scratch.data_ptr(), nbytes, M, K, N,
                        int(not signed), int(compensate), int(bool(unsigned)),
-                       int(bias), _stream())
+                       int(bias), ctypes.addressof(rows), _stream(x.device))
     _raise_cuda(name, err)
     _launched(name)
+    if rows.value in _FUSED_SCHEDULES:
+        SCHEDULES[_FUSED_SCHEDULES[rows.value]] += 1
     return (out, qx, acc) if return_int else out
 
 
@@ -745,7 +771,7 @@ def _attention_launch(q, k_new, v_new, q_gain, k_gain, k_cache, v_cache,
         None if row_out is None else row_out[1].data_ptr(),
         B, H, Kv, S, hd, chunks, n_rows, attention_tile_rows(n_rows, hd),
         int(window or 0), int(qk_norm),
-        int(row_out is None), _stream())
+        int(row_out is None), _stream(dev))
     _raise_cuda(name, err)
     _launched(name)
     return out

@@ -78,23 +78,34 @@ def test_fused_kernel_matches_plain(cuda, signed, compensate, shape):
 
 DECODE_SHAPES = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
 TRAIN_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048)]
+# minitron-8b's merged projections at 48 query heads: wqkv, wo, w_up, w_down
+MINITRON_SHAPES = [(4096, 8192), (6144, 4096), (4096, 16384), (16384, 4096)]
+
+
+def _schedule_of(M):
+    return "fused_qdot." + ("splitk4" if M <= 4 else "splitk8"
+                            if M <= ops.FUSED_SPLIT_MAX_ROWS else "tile")
 
 
 @pytest.mark.parametrize("signed", MODES)
 @pytest.mark.parametrize("compensate", [False, True])
-@pytest.mark.parametrize("M", [1, 2, 3, 4])
-@pytest.mark.parametrize("K,N", DECODE_SHAPES + [(77, 131)])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("K,N", DECODE_SHAPES + [(77, 131)]
+                         + MINITRON_SHAPES)
 def test_fused_split_k_is_exact_and_repeatable(cuda, signed, compensate, M,
                                                K, N):
-    """M <= 4 takes the split-K schedule: the quantize pre-pass, then
-    64-deep k chunks spread over the SMs whose partials meet by atomicAdd,
-    and the CTA that brings a tile's last chunk runs the epilogue.  At the
-    four merged decode projections of qwen3-1.7b and a ragged shape: qx
-    and acc bit-exact, out bit-equal to the plain version without
-    compensation (within check.FUSED_RTOL with it), and two launches
-    bit-equal in every output.  Each launch's scratch comes from the
-    caching allocator right after a block of the same size held garbage,
-    which the pre-pass must clear before the atomic adds."""
+    """M <= 8 takes the split-K schedule (4 rows a thread at M <= 4, 8 at
+    M 5-8): the quantize pre-pass, then k chunks (64-deep at 4 rows,
+    128-deep at 8) spread over the SMs whose partials meet by atomicAdd,
+    and the CTA that brings a tile's last chunk runs the epilogue.  At
+    the four merged decode projections of qwen3-1.7b and of minitron-8b
+    (48 heads) and a ragged shape: qx and acc bit-exact, out bit-equal to
+    the plain version without compensation (within check.FUSED_RTOL with
+    it), and two launches bit-equal in every output; every call counted
+    in ops.SCHEDULES under the schedule its launcher reports.  Each
+    launch's scratch comes from the caching allocator right after a
+    block of the same size held garbage, which the pre-pass must clear
+    before the atomic adds."""
     case = check.fused_case(M, K, N, signed, M * K + N, cuda,
                             compensate=compensate)
     nbytes = ops.fused_scratch_layout(M, K, N)["bytes"]
@@ -102,6 +113,7 @@ def test_fused_split_k_is_exact_and_repeatable(cuda, signed, compensate, M,
     def garbage():    # freed at once: the caching allocator reuses it
         torch.full((nbytes,), 0x7F, dtype=torch.uint8, device=cuda)
 
+    before = ops.SCHEDULES.copy()
     garbage()
     check.check_fused(case)
     garbage()
@@ -110,19 +122,24 @@ def test_fused_split_k_is_exact_and_repeatable(cuda, signed, compensate, M,
     second = ops.fused_qdot_packed(**case, return_int=True)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    assert ops.SCHEDULES - before == {_schedule_of(M): 3}
 
 
 @pytest.mark.parametrize("signed", MODES)
-@pytest.mark.parametrize("K,N", DECODE_SHAPES)
-def test_fused_tile_prefill_shapes(cuda, signed, K, N):
-    """M > 4 takes the tile schedule (32 x 128 tiles over a persistent
+@pytest.mark.parametrize("M,K,N", [(256, K, N) for K, N in DECODE_SHAPES]
+                         + [(9, 16384, 4096)])
+def test_fused_tile_prefill_shapes(cuda, signed, M, K, N):
+    """M > 8 takes the tile schedule (32 x 128 tiles over a persistent
     grid) on the pre-pass's bytes: the prefill's M = 256 at the merged
-    projections, with compensation, repeatable."""
-    case = check.fused_case(256, K, N, signed, K + N, cuda)
+    projections, and M = 9 (one row past split-K) at minitron-8b's
+    w_down, with compensation, repeatable, counted as tile."""
+    case = check.fused_case(M, K, N, signed, K + N, cuda)
+    before = ops.SCHEDULES.copy()
     check.check_fused(case)
     first = ops.fused_qdot_packed(**case, return_int=True)
     for a, b in zip(first, ops.fused_qdot_packed(**case, return_int=True)):
         assert torch.equal(a, b)
+    assert ops.SCHEDULES - before == {"fused_qdot.tile": 3}
 
 
 # the MoE family: routers (K, E) and experts (K, N) of mixtral-8x7b and
@@ -133,13 +150,14 @@ EXPERT_SHAPES = [(4096, 14336), (14336, 4096), (5120, 8192), (8192, 5120)]
 
 @pytest.mark.parametrize("signed", MODES)
 @pytest.mark.parametrize("compensate", [False, True])
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 20, 80, 256])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 8, 20, 80, 256])
 @pytest.mark.parametrize("K,N", ROUTER_SHAPES)
 def test_fused_router_shapes_on_both_schedules(cuda, signed, compensate, M,
                                                K, N):
     """The MoE routers: N = 8 and 16 columns, far under one 128-column
     tile, so every column past N is masked, on the split-K schedule (M <=
-    4) and the tile schedule (prefill); exact and repeatable."""
+    8: 4 and 8 rows a thread) and the tile schedule (prefill); exact and
+    repeatable."""
     case = check.fused_case(M, K, N, signed, M + K + N, cuda,
                             compensate=compensate)
     check.check_fused(case)

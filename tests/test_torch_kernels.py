@@ -602,15 +602,17 @@ def test_lut_operand_patterns(pattern, signed):
 @pytest.mark.parametrize("M,K,N", [(1, 1, 1), (4, 2048, 4096),
                                    (3, 77, 131), (4, 6144, 2048),
                                    (5, 77, 131), (256, 2048, 12288),
-                                   (70, 200, 24)])
+                                   (70, 200, 24), (8, 4096, 8192),
+                                   (9, 77, 131)])
 def test_fused_scratch_layout(M, K, N):
     """The fused kernel's scratch: qx bytes in rows padded to 16, the two
-    row sums, and at M <= 4 (split-K) the int32 accumulator and one
-    arrival count per 128-column tile; every part 16-byte aligned, none
+    row sums, and at M <= ops.FUSED_SPLIT_MAX_ROWS (split-K: 4 rows a
+    thread up to M = 4, 8 above) the int32 accumulator and one arrival
+    count per 128-column tile; every part 16-byte aligned, none
     overlapping."""
     L = ops.fused_scratch_layout(M, K, N)
     assert L["kp"] % 16 == 0 and L["kp"] >= max(K, 16)
-    assert L["splitk"] == (M <= 4)
+    assert L["splitk"] == (M <= ops.FUSED_SPLIT_MAX_ROWS)
     parts = [(0, M * L["kp"]), (L["rs"], 4 * M), (L["rc"], 4 * M)]
     if L["splitk"]:
         parts += [(L["acc"], 4 * M * N), (L["cnt"], 4 * (-(-N // 128)))]
